@@ -1,0 +1,309 @@
+"""Row-stream (0xDB0D) ANS archives: assembly runs on compress, header
+parse, validation and staging on decompress.
+
+A port of the native branch of the JAX package's ``models/ans.py``. An ANS
+archive is [header 8 | pdf 128 | states 32*nb | blockWords 2*round2(nb) |
+row streams], in u32 words. Each row of 4 blocks has one stream, 16 B
+aligned, and blockWords.y holds the row's start, repeated across its 4
+blocks. The encoder returns the archive as runs for the caller's merge; the
+decoder validates every archive-supplied count before it reaches a kernel,
+folding a failure into the member's ``success`` (never a trap).
+
+Metadata arithmetic is int64 on the inputs' device; u32 values are int64
+carriers (``ops.bitops``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.constants import (
+    ANS_MAGIC_NATIVE,
+    ANS_VERSION,
+    BLOCK_SIZE,
+    MAX_BLOCK_WORDS32,
+    MAX_ROW_WORDS32,
+    WARP_SIZE,
+)
+from ..ops.bitops import from_u32, to_i32, to_u32
+from ..ops.merge import runs_merge, runs_merge_plain
+from ..ops.rans_decode import decode_join16, decode_join16_plain
+from ..ops.rans_encode import encode_rows, encode_rows_plain
+from ..ops.table import (
+    build_decode_table_batched,
+    normalize_probs_batched,
+    pack_encode_table,
+)
+
+ANS_MAGIC_NATIVE_VERSION = (ANS_MAGIC_NATIVE << 16) | ANS_VERSION
+META_WORDS = 136  # header (8) + packed pdf table (128)
+# staged row stream width on decode: the worst-case row plus slack
+STAGE_ROW_WORDS32 = MAX_ROW_WORDS32 + 8
+
+# source indices of EncodedRuns.src_ref
+SRC_META, SRC_PAIRS, SRC_STREAMS = 0, 1, 2
+
+
+class EncodedRuns(NamedTuple):
+    """An encoded batch as merge runs (see ``ans_encode_sections``)."""
+
+    meta: torch.Tensor  # int32[B, 136 + 32*NB]: header, pdf, states
+    pairs: torch.Tensor  # int32[B, 2*NB]: blockWords (x, y)
+    streams: torch.Tensor  # int32[B, NR, MAX_ROW_WORDS32]
+    dst: torch.Tensor  # int64[B, 2 + NR], relative to the archive start
+    src_ref: torch.Tensor  # int32[B, 2 + NR]: SRC_META, SRC_PAIRS, SRC_STREAMS
+    src_off: torch.Tensor  # int64[B, 2 + NR], into the flattened source
+    lens: torch.Tensor  # int64[B, 2 + NR]
+    comp_bytes: torch.Tensor  # int64[B]
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def _layout(nb: torch.Tensor):
+    """Per-member u32 offsets of blockWords and of the streams."""
+    bw_off = META_WORDS + 32 * nb
+    data_off = bw_off + 2 * (_ceil_div(nb, 2) * 2)
+    return bw_off, data_off
+
+
+def ans_encode_sections(
+    x32: torch.Tensor,
+    sizes: torch.Tensor,
+    hist: torch.Tensor,
+    prob_bits: int,
+    s_bytes: int,
+    plain: bool = False,
+) -> EncodedRuns:
+    """Encode byte rows into row-stream ANS archives, returned as runs.
+
+    x32: int32[B, W] packed bytes (W*4 >= s_bytes); sizes: int32[B] byte
+    counts; hist: int32[B, 256] byte histograms of the first sizes[b]
+    bytes; s_bytes: the rows' byte capacity, which fixes NB. plain=True runs
+    the encoder's plain version wherever the tensors lie.
+    """
+    dev = x32.device
+    B, W = x32.shape
+    NB = max(1, _ceil_div(s_bytes, BLOCK_SIZE))
+    NR = _ceil_div(NB, 4)
+    sizes64 = sizes.to(torch.int64)
+
+    pdf, cdf, magic, shift = normalize_probs_batched(hist, sizes64, prob_bits)
+    packed = pack_encode_table(pdf, cdf, shift)
+    xp = F.pad(x32, (0, NB * (BLOCK_SIZE // 4) - W))
+    encode = encode_rows_plain if plain else encode_rows
+    states, streams, num_words = encode(
+        xp, sizes.to(torch.int32), from_u32(packed), from_u32(magic), prob_bits
+    )
+
+    nb = _ceil_div(sizes64, BLOCK_SIZE)
+    # 16 B aligned exclusive prefix per row of 4 blocks
+    nw4 = F.pad(num_words.to(torch.int64), (0, 4 * NR - NB)).reshape(B, NR, 4)
+    row_words = nw4.sum(dim=2)
+    aligned = (row_words + 7) // 8 * 8
+    incl = torch.cumsum(aligned, dim=1)
+    row_prefix = incl - aligned
+    prefix = row_prefix.repeat_interleave(4, dim=1)[:, :NB]
+    total_words = incl[:, -1]
+
+    blk = torch.arange(NB, dtype=torch.int64, device=dev)[None, :]
+    uncomp_w = (sizes64[:, None] - blk * BLOCK_SIZE).clamp(0, BLOCK_SIZE)
+    zeros = torch.zeros_like(sizes64)
+    hdr8 = torch.stack(
+        [zeros + ANS_MAGIC_NATIVE_VERSION, nb, sizes64, total_words,
+         zeros + prob_bits, zeros, zeros, zeros],
+        dim=1,
+    )
+    bw_off, data_off = _layout(nb)
+    comp_bytes = 4 * data_off + 2 * total_words
+
+    probs16 = pdf[:, 0::2] | (pdf[:, 1::2] << 16)
+    meta = torch.cat(
+        [from_u32(hdr8), from_u32(probs16), states.reshape(B, NB * WARP_SIZE)],
+        dim=1,
+    )
+    live = blk < nb[:, None]
+    bw_x = (uncomp_w << 16) | num_words.to(torch.int64)
+    pairs = from_u32(torch.stack(
+        [torch.where(live, bw_x, 0), torch.where(live, prefix, 0)], dim=2
+    ).reshape(B, 2 * NB))
+
+    b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+    row = torch.arange(NR, dtype=torch.int64, device=dev)[None, :]
+    row_live = row < _ceil_div(nb, 4)[:, None]
+    dst = torch.cat(
+        [torch.zeros_like(b_ar), bw_off[:, None],
+         data_off[:, None] + (row_prefix >> 1)], dim=1)
+    src_ref = torch.cat(
+        [torch.full((B, 1), SRC_META), torch.full((B, 1), SRC_PAIRS),
+         torch.full((B, NR), SRC_STREAMS)], dim=1).to(torch.int32).to(dev)
+    src_off = torch.cat(
+        [b_ar * meta.shape[1], b_ar * pairs.shape[1],
+         (b_ar * NR + row) * MAX_ROW_WORDS32], dim=1)
+    lens = torch.cat(
+        [(META_WORDS + 32 * nb)[:, None], (2 * nb)[:, None],
+         torch.where(row_live, (row_words + 1) >> 1, 0)], dim=1)
+    return EncodedRuns(meta, pairs, streams, dst, src_ref, src_off, lens,
+                       comp_bytes)
+
+
+class StagedANS(NamedTuple):
+    streams: torch.Tensor  # int32[B, NR, STAGE_ROW_WORDS32]
+    comp_w: torch.Tensor  # int32[B, NB]
+    uncomp_w: torch.Tensor  # int32[B, NB]
+    states: torch.Tensor  # int32[B, NB, 32]
+    pdf: torch.Tensor  # int64[B, 256]
+    success: torch.Tensor  # bool[B]
+    n: torch.Tensor  # int64[B] decoded byte counts (0 where invalid)
+    csum: torch.Tensor  # int64[B] the header's checksum word
+
+
+def _ans_parse_and_stage(
+    comp32: torch.Tensor,
+    base32: torch.Tensor,
+    out_capacity: int,
+    capacities: Optional[torch.Tensor],
+    prob_bits: int,
+    plain: bool = False,
+) -> StagedANS:
+    """Parse and validate the ANS headers at per-member word offsets base32
+    of comp32's rows, then stage the states, blockWords and row streams.
+
+    A wrong magic or prob_bits, an inconsistent block count, an extent past
+    the row, or blockWords that break the format fail the member (size
+    reported 0, staging zeroed) instead of trapping
+    (the JAX package's ``models/ans.py:369-377, 431-487``)."""
+    merge = runs_merge_plain if plain else runs_merge
+    dev = comp32.device
+    B, CW = comp32.shape
+    NB = max(1, _ceil_div(out_capacity, BLOCK_SIZE))
+    NR = _ceil_div(NB, 4)
+    base = base32.to(torch.int64)
+
+    def row_gather(idx):  # idx int64[B, k] relative to base
+        i = (base[:, None] + idx).clamp(0, CW - 1)
+        return to_u32(torch.gather(comp32, 1, i))
+
+    k8 = torch.arange(8, dtype=torch.int64, device=dev).expand(B, 8)
+    hdr = row_gather(k8)
+    nb_arch = to_i32(hdr[:, 1])
+    n = to_i32(hdr[:, 2])
+    total_w = to_i32(hdr[:, 3])
+    csum = hdr[:, 5]
+
+    magic_ok = hdr[:, 0] == ANS_MAGIC_NATIVE_VERSION
+    pb_ok = (hdr[:, 4] & 0xF) == prob_bits
+    struct_ok = (n >= 0) & (total_w >= 0) & (nb_arch == _ceil_div(n, BLOCK_SIZE))
+    _, data_off_arch = _layout(nb_arch.clamp(0, 1 << 24))
+    fits = base + data_off_arch + ((total_w + 1) >> 1) <= CW
+    valid = magic_ok & pb_ok & struct_ok & fits
+    n = torch.where(valid, n, 0)
+    nb_arch = torch.where(valid, nb_arch, 0)
+    if capacities is None:
+        capacities = torch.full((B,), out_capacity, dtype=torch.int64, device=dev)
+    success = valid & (n <= capacities.to(torch.int64))
+
+    pw = row_gather(8 + torch.arange(128, dtype=torch.int64, device=dev).expand(B, 128))
+    pdf = torch.stack([pw & 0xFFFF, pw >> 16], dim=2).reshape(B, 256)
+
+    nb = torch.minimum(nb_arch, torch.full_like(nb_arch, NB))
+    blk = torch.arange(NB, dtype=torch.int64, device=dev)[None, :]
+    live = (blk < nb[:, None]) & success[:, None]
+
+    flat = comp32.reshape(-1)
+    b_ar = torch.arange(B, dtype=torch.int64, device=dev)
+    abs_base = b_ar * CW + base
+    bw_off, data_off = _layout(nb_arch)
+    SM, PM = 32 * NB, 2 * NB
+    zero_ref = torch.zeros(2 * B, dtype=torch.int32, device=dev)
+    stage1 = merge(
+        [flat],
+        torch.cat([b_ar * SM, B * SM + b_ar * PM]),
+        zero_ref,
+        torch.cat([abs_base + META_WORDS, abs_base + bw_off]),
+        torch.cat([32 * nb, 2 * nb]),
+        B * (SM + PM),
+    )
+    states = stage1[: B * SM].reshape(B, NB, WARP_SIZE)
+    bw = to_u32(stage1[B * SM:].reshape(B, NB, 2))
+
+    bx, by = bw[:, :, 0], bw[:, :, 1]
+    uncomp_w = torch.where(live, bx >> 16, 0)
+    comp_w = torch.where(live, bx & 0xFFFF, 0)
+    starts = torch.where(live, to_i32(by), 0)
+
+    # blockWords must match the format before they feed staging offsets:
+    # uncomp_w EQUAL to the header-derived fill (so outputs are zero past n
+    # by construction), comp_w within the worst case, extents inside total
+    uw_expect = (n[:, None] - blk * BLOCK_SIZE).clamp(0, BLOCK_SIZE)
+    blk_ok = ~live | (
+        (comp_w <= 2 * MAX_BLOCK_WORDS32)
+        & (uncomp_w == uw_expect)
+        & (starts >= 0)
+        & (starts + comp_w <= total_w[:, None])
+    )
+    success = success & blk_ok.all(dim=1)
+    live = live & success[:, None]
+    comp_w = torch.where(live, comp_w, 0)
+    uncomp_w = torch.where(live, uncomp_w, 0)
+    starts = torch.where(live, starts, 0)
+
+    # one stream per row of 4 blocks; the row's start is repeated in each
+    # of its blocks' blockWords.y, so take the first
+    seg_words = F.pad(comp_w, (0, 4 * NR - NB)).reshape(B, NR, 4).sum(dim=2)
+    seg_starts = starts[:, 0::4]
+    success = success & (seg_starts + seg_words <= total_w[:, None]).all(dim=1)
+    dead = ~success[:, None]
+    seg_words = torch.where(dead, 0, seg_words)
+    seg_starts = torch.where(dead, 0, seg_starts)
+    comp_w = torch.where(dead, 0, comp_w)
+    uncomp_w = torch.where(dead, 0, uncomp_w)
+
+    SW = STAGE_ROW_WORDS32
+    r_flat = torch.arange(B * NR, dtype=torch.int64, device=dev)
+    streams = merge(
+        [flat],
+        r_flat * SW,
+        torch.zeros(B * NR, dtype=torch.int32, device=dev),
+        ((abs_base + data_off)[:, None] + (seg_starts >> 1)).reshape(-1),
+        ((seg_words + 1) >> 1).reshape(-1),
+        B * NR * SW,
+    ).reshape(B, NR, SW)
+    return StagedANS(
+        streams, comp_w.to(torch.int32), uncomp_w.to(torch.int32), states, pdf,
+        success, n, csum,
+    )
+
+
+def ans_decode_join16_core(
+    comp32: torch.Tensor,
+    base32: torch.Tensor,
+    raw32_blocks: torch.Tensor,
+    out_floats: int,
+    prob_bits: int,
+    bf16: bool,
+    capacities: Optional[torch.Tensor] = None,
+    plain: bool = False,
+):
+    """Decode the exponent-plane ANS archives at word offsets base32 and
+    join them with the block-major raw section raw32_blocks
+    (int32[B, NB, 1024]) into 16-bit floats.
+
+    Returns (words32 int32[B, ceil(out_floats / 2)], success bool[B],
+    n int64[B], csum int64[B]). words32 is not masked by success: the float
+    codec applies its combined success."""
+    st = _ans_parse_and_stage(
+        comp32, base32, out_floats, capacities, prob_bits, plain=plain
+    )
+    B = comp32.shape[0]
+    NB = st.comp_w.shape[1]
+    lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
+    decode = decode_join16_plain if plain else decode_join16
+    out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut,
+                 raw32_blocks, prob_bits, bf16)
+    OW = _ceil_div(2 * out_floats, 4)
+    return out.reshape(B, NB * 2048)[:, :OW], st.success, st.n, st.csum

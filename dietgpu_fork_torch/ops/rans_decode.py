@@ -1,0 +1,138 @@
+"""Row-stream (0xDB0D) rANS decode fused with the 16-bit float join:
+kernel K4 and its plain version.
+
+Each row of 4 blocks shares one reverse cursor over its stream. The walk is
+bottom-aligned (block iteration k = i - (128 - nsteps) at step i), so every
+active block of a row undoes the same encode step and the stream's reverse
+order is one suffix count over the row's 128 lanes
+(the JAX package's ``ops/rans_decode.py:135``, ``decode_blocks_rows``). The
+decoded exponent byte of each float is joined with its raw byte
+(``float_split.py:193-202``): out = raw | sym << 8, rotated right by 1 within
+16 bits for bf16, and 0 at positions at or past a block's decoded count.
+
+``decode_join16`` sends CUDA tensors to the kernel
+(``csrc/rans_decode_join16.cu``) and CPU tensors to ``decode_join16_plain``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core.config import use_kernels
+from ..core.constants import (
+    ANS_MIN_STATE,
+    BLOCK_SIZE,
+    STEPS_PER_BLOCK,
+    VALID_PROB_BITS,
+    WARP_SIZE,
+)
+from ..runtime import cuda_kernels as K
+from .bitops import M32, from_u32, to_u32
+from .float_split import join16, unpack_bytes
+
+
+def _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits):
+    if prob_bits not in VALID_PROB_BITS:
+        raise ValueError(f"prob_bits must be one of {VALID_PROB_BITS}")
+    if streams.dim() != 3:
+        raise TypeError("streams must be [B, NR, SW]")
+    B, NR, _ = streams.shape
+    if comp_w.dim() != 2 or comp_w.shape[0] != B:
+        raise TypeError("comp_w must be [B, NB]")
+    NB = comp_w.shape[1]
+    if NR != -(-NB // 4):
+        raise ValueError(f"streams has {NR} rows for {NB} blocks")
+    for name, t, shape in (
+        ("streams", streams, streams.shape),
+        ("comp_w", comp_w, (B, NB)),
+        ("uncomp_w", uncomp_w, (B, NB)),
+        ("states", states, (B, NB, WARP_SIZE)),
+        ("lut", lut, (B, 1 << prob_bits)),
+        ("raw32", raw32, (B, NB, BLOCK_SIZE // 4)),
+    ):
+        if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
+            raise TypeError(f"{name} must be torch.int32 of shape {tuple(shape)}")
+        if t.device != streams.device:
+            raise ValueError("all inputs must lie on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
+                  prob_bits: int, bf16: bool) -> torch.Tensor:
+    """Decode every block of a batch and join it into 16-bit floats.
+
+    streams: int32[B, NR, SW] start-aligned staged row streams (u16 pairs);
+    comp_w / uncomp_w: int32[B, NB] per-block u16 word and byte counts
+    (uncomp_w <= 4096; 0 for dead blocks); states: int32[B, NB, 32]; lut:
+    int32[B, 2^prob_bits] from ``build_decode_table_batched``; raw32:
+    int32[B, NB, 1024] block-major raw-section words. Returns
+    int32[B, NB, 2048]: two floats per word, zero past each block's count.
+    """
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits)
+    if use_kernels(streams):
+        return K.decode_join16(
+            streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
+        )
+    return decode_join16_plain(
+        streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
+    )
+
+
+def decode_join16_plain(streams, comp_w, uncomp_w, states, lut, raw32,
+                        prob_bits: int, bf16: bool) -> torch.Tensor:
+    """Plain PyTorch version of K4; runs on any device."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits)
+    dev = streams.device
+    B, NR, SW = streams.shape
+    NB = comp_w.shape[1]
+    NB4 = 4 * NR
+    S = STEPS_PER_BLOCK
+
+    def pad4(a):  # [B, NB, ...] -> [B, NB4, ...]
+        return F.pad(a, [0, 0] * (a.dim() - 2) + [0, NB4 - NB])
+
+    uw = pad4(uncomp_w.to(torch.int64)).reshape(B, NR, 4)
+    cw = pad4(comp_w.to(torch.int64)).reshape(B, NR, 4)
+    r = ((uw - 1) % WARP_SIZE) + 1  # tail group width
+    nsteps = (uw + WARP_SIZE - 1) // WARP_SIZE
+    st = to_u32(pad4(states)).reshape(B, NR, 4 * WARP_SIZE)
+    ptr = cw.sum(dim=2)
+    lut64 = to_u32(lut)
+    rows = to_u32(streams)
+    lanes = torch.arange(WARP_SIZE, dtype=torch.int64, device=dev)
+    smask = (1 << prob_bits) - 1
+
+    syms = []
+    for i in range(S):
+        k = i - (S - nsteps)
+        active = (k >= 0) & (uw > 0)
+        valid = (
+            active[..., None] & ((k[..., None] > 0) | (lanes < r[..., None]))
+        ).reshape(B, NR, 4 * WARP_SIZE)
+        ent = torch.gather(lut64, 1, (st & smask).reshape(B, -1)).reshape(st.shape)
+        syms.append(ent & 0xFF)
+        pdf = (ent >> 8) & 0xFFF
+        st = torch.where(valid, (pdf * (st >> prob_bits) + (ent >> 20)) & M32, st)
+        read = valid & (st < ANS_MIN_STATE)
+        # reads of lanes >= l: the reverse of the blocks-then-lanes order
+        suffix = read.flip(2).to(torch.int64).cumsum(2).flip(2)
+        idx16 = ptr[..., None] - suffix
+        w32 = torch.gather(rows, 2, (idx16 >> 1).clamp(0, SW - 1))
+        val = torch.where((idx16 & 1) == 1, w32 >> 16, w32 & 0xFFFF)
+        st = torch.where(read, ((st << 16) + val) & M32, st)
+        ptr = ptr - read.sum(dim=2)
+
+    # step i decoded positions 32 * (127 - i) + lane of every block
+    sym = (
+        torch.stack(syms).flip(0)
+        .reshape(S, B, NR, 4, WARP_SIZE)
+        .permute(1, 2, 3, 0, 4)
+        .reshape(B, NB4, BLOCK_SIZE)[:, :NB]
+    )
+    p = torch.arange(BLOCK_SIZE, dtype=torch.int64, device=dev)
+    keep = p < uncomp_w.to(torch.int64)[..., None]
+    raw = unpack_bytes(to_u32(raw32))
+    words = join16(torch.where(keep, sym, 0), torch.where(keep, raw, 0), bf16)
+    return from_u32(words)

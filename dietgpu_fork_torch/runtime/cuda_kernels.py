@@ -1,0 +1,231 @@
+"""The port's hand-written CUDA kernels: build, load, launch, count.
+
+The sources in ``dietgpu_fork_torch/csrc/*.cu`` have a plain C interface.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
+one shared library under ``dietgpu_fork_torch/build/``, named by a hash of
+the sources and flags, and loaded with ctypes. Nothing is built or loaded
+when this module is imported.
+
+Each wrapper takes CUDA tensors that the op modules (``ops/*.py``) have
+already checked, allocates its outputs with torch, launches on the current
+stream of the tensors' device, raises if the launch failed, and adds one to
+its entry of ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+import torch
+
+from ..core.constants import MAX_ROW_WORDS32, NUM_SYMBOLS, WARP_SIZE
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = (
+    "split16_hist.cu",
+    "rans_encode_rows.cu",
+    "runs_merge.cu",
+    "rans_decode_join16.cu",
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Launches of each kernel since the last reset_launches().
+launches: Dict[str, int] = {
+    "split16_hist": 0,
+    "rans_encode_rows": 0,
+    "runs_merge": 0,
+    "rans_decode_join16": 0,
+}
+
+# What the last build did: seconds spent in nvcc (0.0 when the library was
+# already built) and the compiler's report (registers, shared memory).
+build_info: Dict[str, object] = {"seconds": 0.0, "log": "", "path": None}
+
+_lib = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    if shutil.which("nvcc"):
+        cands.append(shutil.which("nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _build() -> Path:
+    srcs = [CSRC / s for s in SOURCES]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    out = BUILD_DIR / f"libdgt_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_info["seconds"] = time.perf_counter() - t0
+    build_info["log"] = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {res.returncode}:\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """Build (once) and load the kernels' shared library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    path = _build()
+    lib = ctypes.CDLL(str(path))
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    sigs = {
+        "dgt_split16_hist": [P, L, L, P, I, P, P, P, P, P],
+        "dgt_rans_encode_rows": [P, P, P, P, L, L, I, P, P, P, P],
+        "dgt_runs_merge": [P, P, I, P, P, P, P, L, P, L, P],
+        "dgt_rans_decode_join16": [P, L, P, P, P, P, I, P, L, L, I, P, P],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.dgt_error_string.argtypes = [ctypes.c_int]
+    lib.dgt_error_string.restype = ctypes.c_char_p
+    build_info["path"] = str(path)
+    _lib = lib
+    return lib
+
+
+def _check(lib, err: int, name: str) -> None:
+    if err != 0:
+        msg = lib.dgt_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _cuda_only(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if not t.is_cuda:
+            raise ValueError("the CUDA kernels take CUDA tensors only")
+
+
+def _batch_ok(B: int) -> None:
+    if not 0 < B < 65536:
+        raise ValueError(f"batch {B} outside the kernels' grid range [1, 65535]")
+
+
+def split16_hist(data32: torch.Tensor, n: torch.Tensor, bf16: bool):
+    """K1 launch; arguments as ``ops.float_split.split16_hist``."""
+    _cuda_only(data32, n)
+    B, W32 = data32.shape
+    _batch_ok(B)
+    dev = data32.device
+    exp = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
+    raw = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
+    hist = torch.zeros((B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    csum = torch.zeros((B,), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_split16_hist(
+            data32.data_ptr(), B, W32, n.data_ptr(), int(bf16), exp.data_ptr(),
+            raw.data_ptr(), hist.data_ptr(), csum.data_ptr(), _stream(data32),
+        )
+    _check(lib, err, "split16_hist")
+    launches["split16_hist"] += 1
+    return exp, raw, hist, csum
+
+
+def encode_rows(x32, sizes, packed, magic, prob_bits: int):
+    """K2 launch; arguments as ``ops.rans_encode.encode_rows``."""
+    _cuda_only(x32, sizes, packed, magic)
+    B, W = x32.shape
+    _batch_ok(B)
+    NB = W // 1024
+    NR = -(-NB // 4)
+    dev = x32.device
+    states = torch.empty((B, NB, WARP_SIZE), dtype=torch.int32, device=dev)
+    streams = torch.empty((B, NR, MAX_ROW_WORDS32), dtype=torch.int32, device=dev)
+    num_words = torch.empty((B, NB), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_rans_encode_rows(
+            x32.data_ptr(), sizes.data_ptr(), packed.data_ptr(),
+            magic.data_ptr(), B, NB, prob_bits, states.data_ptr(),
+            streams.data_ptr(), num_words.data_ptr(), _stream(x32),
+        )
+    _check(lib, err, "rans_encode_rows")
+    launches["rans_encode_rows"] += 1
+    return states, streams, num_words
+
+
+def runs_merge(srcs: Sequence[torch.Tensor], dst, ref, off, lens, out_len: int):
+    """K3 launch; arguments as ``ops.merge.runs_merge``."""
+    srcs: List[torch.Tensor] = list(srcs)
+    _cuda_only(dst, ref, off, lens, *srcs)
+    dev = dst.device
+    out = torch.empty((out_len,), dtype=torch.int32, device=dev)
+    if out_len == 0:
+        return out
+    ptrs = torch.tensor([s.data_ptr() for s in srcs], dtype=torch.int64).to(dev)
+    src_len = torch.tensor([s.numel() for s in srcs], dtype=torch.int64).to(dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_runs_merge(
+            ptrs.data_ptr(), src_len.data_ptr(), len(srcs), dst.data_ptr(),
+            ref.data_ptr(), off.data_ptr(), lens.data_ptr(), dst.shape[0],
+            out.data_ptr(), out_len, _stream(dst),
+        )
+    _check(lib, err, "runs_merge")
+    launches["runs_merge"] += 1
+    return out
+
+
+def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
+                  prob_bits: int, bf16: bool):
+    """K4 launch; arguments as ``ops.rans_decode.decode_join16``."""
+    _cuda_only(streams, comp_w, uncomp_w, states, lut, raw32)
+    B, NR, SW = streams.shape
+    _batch_ok(B)
+    NB = comp_w.shape[1]
+    dev = streams.device
+    out = torch.empty((B, NB, 2048), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_rans_decode_join16(
+            streams.data_ptr(), SW, comp_w.data_ptr(), uncomp_w.data_ptr(),
+            states.data_ptr(), lut.data_ptr(), prob_bits, raw32.data_ptr(), B,
+            NB, int(bf16), out.data_ptr(), _stream(streams),
+        )
+    _check(lib, err, "rans_decode_join16")
+    launches["rans_decode_join16"] += 1
+    return out

@@ -1,0 +1,129 @@
+"""The PyTorch port stands alone: importing it pulls in neither jax nor the
+JAX package, its sources never name them, and its own copy of the format
+constants equals the JAX package's."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import dietgpu_fork_tpu.core.constants as J
+import dietgpu_fork_torch.core.constants as T
+from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(
+    p.relative_to(ROOT).as_posix()
+    for p in (ROOT / "dietgpu_fork_torch").rglob("*")
+    if p.suffix in (".py", ".cu")
+) + ["chip_smoke.py"]
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import dietgpu_fork_torch\n"
+        "import dietgpu_fork_torch.models.float_codec\n"
+        "import dietgpu_fork_torch.runtime.cuda_kernels\n"
+        "import dietgpu_fork_torch.core.interop\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'dietgpu_fork_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_source_names_no_jax(path):
+    text = (ROOT / path).read_text()
+    for word in ("import jax", "from jax", "dietgpu_fork_tpu"):
+        assert word not in text, f"{path} mentions {word!r}"
+
+
+@pytest.mark.parametrize(
+    "name",
+    [
+        "NUM_SYMBOLS", "BLOCK_SIZE", "WARP_SIZE", "STEPS_PER_BLOCK",
+        "ANS_STATE_BITS", "ANS_ENCODED_BITS", "ANS_ENCODED_MASK",
+        "ANS_START_STATE", "ANS_MIN_STATE", "ANS_MAGIC", "ANS_VERSION",
+        "ANS_MAGIC_NATIVE", "FLOAT_MAGIC", "FLOAT_VERSION",
+        "FLOAT_VERSION_ALIGNED", "FLOAT_ALIGN_MIN",
+        "FLOAT_SECTION_ALIGN_BYTES", "BLOCK_ALIGNMENT", "VALID_PROB_BITS",
+        "DEFAULT_PROB_BITS", "ANS_HEADER_BYTES", "FLOAT_HEADER_BYTES",
+        "FLOAT_HEADER2_BYTES",
+    ],
+)
+def test_constant_equals_jax(name):
+    assert getattr(T, name) == getattr(J, name)
+
+
+def test_float_types_equal_jax():
+    assert {m.name: int(m) for m in T.FloatType} == {
+        m.name: int(m) for m in J.FloatType
+    }
+    assert {int(k): v for k, v in T.FLOAT_WORD_SIZE.items()} == {
+        int(k): v for k, v in J.FLOAT_WORD_SIZE.items()
+    }
+
+
+def test_stream_bounds_equal_jax():
+    from dietgpu_fork_tpu.ops.rans_encode import (
+        MAX_BLOCK_WORDS32,
+        MAX_ROW_WORDS32,
+    )
+
+    assert T.MAX_BLOCK_WORDS32 == MAX_BLOCK_WORDS32
+    assert T.MAX_ROW_WORDS32 == MAX_ROW_WORDS32
+
+
+@pytest.mark.parametrize("size", [0, 1, 4095, 4096, 4097, 20483, 1 << 20, 1 << 24])
+def test_size_functions_equal_jax(size):
+    assert T.num_blocks(size) == J.num_blocks(size)
+    assert T.max_compressed_size(size) == J.max_compressed_size(size)
+    assert T.raw_comp_block_max_size(size or 1) == J.raw_comp_block_max_size(size or 1)
+    for ft in (1, 2, 3, 4):
+        assert T.max_float_compressed_size(T.FloatType(ft), size) == (
+            J.max_float_compressed_size(J.FloatType(ft), size)
+        )
+
+
+@pytest.mark.parametrize(
+    "wrapper", ["split16_hist", "encode_rows", "runs_merge", "decode_join16"]
+)
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    """A kernel wrapper never runs, builds or falls back on a CPU tensor."""
+    from dietgpu_fork_torch.runtime import cuda_kernels as K
+
+    t = torch.zeros((1, 1024), dtype=torch.int32)
+    args = {
+        "split16_hist": (t, t[0, :1], True),
+        "encode_rows": (t, t[0, :1], t[:, :256], t[:, :256], 10),
+        "runs_merge": ([t[0]], t[0, :1].long(), t[0, :1], t[0, :1].long(),
+                       t[0, :1].long(), 4),
+        "decode_join16": (t[None], t, t, t, t, t, 10, True),
+    }[wrapper]
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        getattr(K, wrapper)(*args)
+    assert K._lib is None
+
+
+def test_interop_is_bit_exact():
+    a = np.array([[0, 1, 0x7FFFFFFF, 0x80000000], [0xFFFFFFFF, 5, 6, 0xDEADBEEF]],
+                 dtype=np.uint32)
+    t = rows_from_numpy(a)
+    assert t.dtype == torch.int32 and t.shape == a.shape
+    assert int(t[0, 3]) == -(1 << 31) and int(t[1, 0]) == -1
+    back = rows_to_numpy(t)
+    assert back.dtype == np.uint32 and np.array_equal(back, a)
+    with pytest.raises(TypeError):
+        rows_from_numpy(a.astype(np.int64))
+    with pytest.raises(TypeError):
+        rows_to_numpy(t.to(torch.int64))
