@@ -62,6 +62,15 @@ FLOAT_WORD_SIZE = {
     FloatType.FLOAT64: 8,
 }
 
+# ANS-coded exponent planes per float type (fp64 codes two bytes per float,
+# each plane its own ANS archive; GpuFloatUtils.cuh:78-96).
+FLOAT_NUM_COMP_SEGMENTS = {
+    FloatType.FLOAT16: 1,
+    FloatType.BFLOAT16: 1,
+    FloatType.FLOAT32: 1,
+    FloatType.FLOAT64: 2,
+}
+
 
 def div_up(a: int, b: int) -> int:
     return -(-a // b)

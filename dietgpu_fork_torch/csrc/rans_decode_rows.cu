@@ -1,9 +1,16 @@
-// K4: row-stream (0xDB0D) rANS decode fused with the 16-bit float join.
+// K4 and K6: row-stream (0xDB0D) rANS decode, one walk with two epilogues.
 //
-// Replaces the JAX package's ops/pallas/rans_decode_fused2.py::_decode_kernel2
-// in modes JOIN_F16 / JOIN_BF16 with row=True (entry decode_join16_fused).
-// Contract: dietgpu_fork_torch/ops/rans_decode.py::decode_join16_plain, the
-// JAX package's decode_blocks_rows followed by the 16-bit join_packed.
+// K6 (dgt_rans_decode_rows) writes the decoded bytes. It replaces the JAX
+// package's ops/pallas/rans_decode_fused2.py::_decode_kernel2 in mode
+// JOIN_NONE with row=True (entry decode_blocks_fused2(row_stream=True)), the
+// fp32/fp64 planes' decode. Contract: dietgpu_fork_torch/ops/rans_decode.py
+// ::decode_rows_plain, the JAX package's decode_blocks_rows.
+//
+// K4 (dgt_rans_decode_join16) joins each decoded exponent byte with its raw
+// byte into a 16-bit float. It replaces _decode_kernel2 in modes JOIN_F16 /
+// JOIN_BF16 with row=True (entry decode_join16_fused). Contract:
+// ops/rans_decode.py::decode_join16_plain, decode_blocks_rows followed by
+// the 16-bit join_packed.
 //
 // One CTA per row of 4 blocks = 128 threads with ONE reverse cursor over the
 // row's stream. The walk is bottom-aligned: at step i, block iteration
@@ -14,16 +21,16 @@
 // higher warps' part from shared memory. Iteration k = 0 covers the block's
 // tail group of ((U - 1) mod 32) + 1 lanes.
 //
-// The decoded exponent byte meets the raw byte of the same float at position
-// 32 * (127 - i) + lane: out = raw | sym << 8, rotated right by 1 within 16
-// bits for bf16, and 0 at positions >= the block's decoded count.
+// Step i decodes position p = 32 * (127 - i) + lane of each block. K6 writes
+// the symbol byte there; K4 writes raw | sym << 8, rotated right by 1 within
+// 16 bits for bf16. Both write 0 at positions >= the block's decoded count.
 //
 // Bound on the card: the serial chain of 128 dependent steps (a shared LUT
 // read, the state update, one barrier) per row; occupancy comes from the
 // number of rows. The decode LUT ((slot - cdf) << 20 | pdf << 8 | sym,
 // 2^prob_bits u32) sits in shared memory. The row stream is read from the
 // start-aligned staging buffer; reading it from the archive in place is a
-// later change.
+// later change. K6's byte stores are 32 B per warp and step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,14 +44,16 @@ constexpr int kSteps = 128;
 constexpr int kBlockBytes = 4096;
 constexpr int kMaxLut = 1 << 11;
 
+// kJoin16: K4's epilogue (raw bytes in, u16 floats out); else K6's (u8 out).
+template <bool kJoin16>
 __global__ void __launch_bounds__(kThreads)
-rans_decode_join16_kernel(const uint32_t* __restrict__ streams, int64_t sw,
-                          const int32_t* __restrict__ comp_w,
-                          const int32_t* __restrict__ uncomp_w,
-                          const uint32_t* __restrict__ states,
-                          const uint32_t* __restrict__ lut, int prob_bits,
-                          const uint8_t* __restrict__ raw, int64_t nb,
-                          int64_t nr, int bf16, uint16_t* __restrict__ out) {
+rans_decode_rows_kernel(const uint32_t* __restrict__ streams, int64_t sw,
+                        const int32_t* __restrict__ comp_w,
+                        const int32_t* __restrict__ uncomp_w,
+                        const uint32_t* __restrict__ states,
+                        const uint32_t* __restrict__ lut, int prob_bits,
+                        const uint8_t* __restrict__ raw, int64_t nb,
+                        int64_t nr, int bf16, void* __restrict__ out) {
   __shared__ uint32_t sh_lut[kMaxLut];
   __shared__ int sh_cw[kRowBlocks];
   __shared__ int sh_cnt[2][kRowBlocks];
@@ -70,8 +79,7 @@ rans_decode_join16_kernel(const uint32_t* __restrict__ streams, int64_t sw,
   const int tail = uw > 0 ? ((uw - 1) % kWarp) + 1 : kWarp;
   const uint32_t smask = (uint32_t)nslots - 1u;
   uint32_t state = live ? states[blk_idx * kWarp + lane] : 0u;
-  const uint8_t* rawb = raw + blk_idx * kBlockBytes;
-  uint16_t* outb = out + blk_idx * kBlockBytes;
+  const uint8_t* rawb = kJoin16 ? raw + blk_idx * kBlockBytes : nullptr;
   const uint32_t* srow = streams + (b * nr + row) * sw;
   const unsigned at_or_above = ~((1u << lane) - 1u);
 
@@ -84,10 +92,19 @@ rans_decode_join16_kernel(const uint32_t* __restrict__ streams, int64_t sw,
       const uint32_t ent = sh_lut[state & smask];
       const uint32_t pdf = (ent >> 8) & 0xFFFu;
       state = pdf * (state >> prob_bits) + (ent >> 20);
-      v = (uint32_t)rawb[p] | ((ent & 0xFFu) << 8);
-      if (bf16) v = ((v >> 1) | (v << 15)) & 0xFFFFu;
+      v = ent & 0xFFu;
+      if constexpr (kJoin16) {
+        v = (uint32_t)rawb[p] | (v << 8);
+        if (bf16) v = ((v >> 1) | (v << 15)) & 0xFFFFu;
+      }
     }
-    if (live) outb[p] = (uint16_t)v;
+    if (live) {
+      if constexpr (kJoin16) {
+        ((uint16_t*)out)[blk_idx * kBlockBytes + p] = (uint16_t)v;
+      } else {
+        ((uint8_t*)out)[blk_idx * kBlockBytes + p] = (uint8_t)v;
+      }
+    }
 
     const bool read = valid && state < (1u << 15);
     const unsigned ballot = __ballot_sync(0xFFFFFFFFu, read);
@@ -110,24 +127,43 @@ rans_decode_join16_kernel(const uint32_t* __restrict__ streams, int64_t sw,
   }
 }
 
+template <bool kJoin16>
+int launch(const void* streams, long long sw, const void* comp_w,
+           const void* uncomp_w, const void* states, const void* lut,
+           int prob_bits, const void* raw, long long batch, long long nb,
+           int bf16, void* out, void* stream) {
+  const long long nr = (nb + kRowBlocks - 1) / kRowBlocks;
+  dim3 grid((unsigned)nr, (unsigned)batch);
+  rans_decode_rows_kernel<kJoin16><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)streams, sw, (const int32_t*)comp_w,
+      (const int32_t*)uncomp_w, (const uint32_t*)states,
+      (const uint32_t*)lut, prob_bits, (const uint8_t*)raw, nb, nr, bf16, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // streams: u32[B, nr, sw] start-aligned staged row streams (u16 pairs);
 // comp_w, uncomp_w: i32[B, nb]; states: u32[B, nb, 32]; lut:
-// u32[B, 2^prob_bits]; raw: u8[B, nb, 4096] block-major raw bytes. Writes
-// out u16[B, nb, 4096]. Returns cudaGetLastError() after the launch.
+// u32[B, 2^prob_bits]. Writes out u8[B, nb, 4096]. Returns
+// cudaGetLastError() after the launch.
+extern "C" int dgt_rans_decode_rows(const void* streams, long long sw,
+                                    const void* comp_w, const void* uncomp_w,
+                                    const void* states, const void* lut,
+                                    int prob_bits, long long batch,
+                                    long long nb, void* out, void* stream) {
+  return launch<false>(streams, sw, comp_w, uncomp_w, states, lut, prob_bits,
+                       nullptr, batch, nb, 0, out, stream);
+}
+
+// As dgt_rans_decode_rows, plus raw: u8[B, nb, 4096] block-major raw bytes.
+// Writes out u16[B, nb, 4096].
 extern "C" int dgt_rans_decode_join16(const void* streams, long long sw,
                                       const void* comp_w, const void* uncomp_w,
                                       const void* states, const void* lut,
                                       int prob_bits, const void* raw,
                                       long long batch, long long nb, int bf16,
                                       void* out, void* stream) {
-  const long long nr = (nb + kRowBlocks - 1) / kRowBlocks;
-  dim3 grid((unsigned)nr, (unsigned)batch);
-  rans_decode_join16_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)streams, sw, (const int32_t*)comp_w,
-      (const int32_t*)uncomp_w, (const uint32_t*)states,
-      (const uint32_t*)lut, prob_bits, (const uint8_t*)raw, nb, nr, bf16,
-      (uint16_t*)out);
-  return (int)cudaGetLastError();
+  return launch<true>(streams, sw, comp_w, uncomp_w, states, lut, prob_bits,
+                      raw, batch, nb, bf16, out, stream);
 }

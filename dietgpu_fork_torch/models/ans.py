@@ -30,7 +30,12 @@ from ..core.constants import (
 )
 from ..ops.bitops import from_u32, to_i32, to_u32
 from ..ops.merge import runs_merge, runs_merge_plain
-from ..ops.rans_decode import decode_join16, decode_join16_plain
+from ..ops.rans_decode import (
+    decode_join16,
+    decode_join16_plain,
+    decode_rows,
+    decode_rows_plain,
+)
 from ..ops.rans_encode import encode_rows, encode_rows_plain
 from ..ops.table import (
     build_decode_table_batched,
@@ -277,6 +282,33 @@ def _ans_parse_and_stage(
         streams, comp_w.to(torch.int32), uncomp_w.to(torch.int32), states, pdf,
         success, n, csum,
     )
+
+
+def ans_decode_core(
+    comp32: torch.Tensor,
+    base32: torch.Tensor,
+    out_capacity: int,
+    prob_bits: int,
+    capacities: Optional[torch.Tensor] = None,
+    plain: bool = False,
+):
+    """Decode the ANS archives at word offsets base32 of comp32's rows into
+    packed bytes (the JAX package's ``models/ans.py:515-568``, native).
+
+    Returns (out32 int32[B, ceil(out_capacity / 4)], zero past each
+    member's size and all zero for failed members; success bool[B];
+    n int64[B]; csum int64[B])."""
+    st = _ans_parse_and_stage(
+        comp32, base32, out_capacity, capacities, prob_bits, plain=plain
+    )
+    B = comp32.shape[0]
+    NB = st.comp_w.shape[1]
+    lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
+    decode = decode_rows_plain if plain else decode_rows
+    out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut, prob_bits)
+    OW = _ceil_div(out_capacity, 4)
+    out32 = out.reshape(B, NB * (BLOCK_SIZE // 4))[:, :OW]
+    return torch.where(st.success[:, None], out32, 0), st.success, st.n, st.csum
 
 
 def ans_decode_join16_core(

@@ -1,21 +1,27 @@
-"""16-bit float codec (fp16, bf16) over row-stream ANS: compress and
+"""Float codec (fp16, bf16, fp32, fp64) over row-stream ANS: compress and
 decompress of u32-packed float rows.
 
-A port of the JAX package's ``models/float_codec.py`` for fp16/bf16 with
-``native=True``:
+A port of the JAX package's ``models/float_codec.py`` with ``native=True``:
 
-* compress: K1 split + histogram + checksum -> table build -> K2 rANS
-  encode into row streams -> one K3 merge placing the float header, the raw
-  section and the ANS archive's runs into each member's archive row;
-* decompress: float header parse -> K3 stages the raw section block-major
-  -> ANS parse, validation and two K3 staging merges -> K4 decodes and
-  joins into float words (the JAX package's fused 16-bit branch).
+* compress: split + histogram + checksum (K1 for 16-bit, K5 for fp32 and
+  fp64) -> table build -> K2 rANS encode into row streams (one launch for
+  both fp64 planes) -> one K3 merge placing the float header, the raw
+  sections and the ANS archives' runs into each member's archive row;
+* decompress, 16-bit: float header parse -> K3 stages the raw section
+  block-major -> ANS parse, validation and two K3 staging merges -> K4
+  decodes and joins into float words (the JAX package's fused branch);
+* decompress, fp32 and fp64: float header parse -> per plane, ANS parse,
+  validation, staging and a K6 decode to bytes -> one K3 merge staging both
+  raw sections -> K7 joins planes and sections into float words (the JAX
+  package's default two-pass branch).
 
-Archive layout per member (u32 words): float header (8), raw section
-(round_up(n, 16) bytes), ANS archive. Members with n >= FLOAT_ALIGN_MIN use
-the v2 container: the raw section starts at word 128 and is padded to 128
-words. fp32, fp64, the classic 0xD00D layout and the decode-side checksum
-are not in this port yet and raise ``NotImplementedError``.
+Archive layout per member (u32 words): float header (8; word 4 holds the
+first ANS archive's byte size for fp64), raw section 1, raw section 2
+(fp32, fp64), one ANS archive per exponent plane. Sections are 16 B
+aligned; members with n >= FLOAT_ALIGN_MIN use the v2 container, where
+each raw section starts on a 128-word boundary. The classic 0xD00D layout
+and the decode-side checksum are not in this port yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,22 +36,32 @@ from ..core.constants import (
     DEFAULT_PROB_BITS,
     FLOAT_ALIGN_MIN,
     FLOAT_MAGIC,
+    FLOAT_NUM_COMP_SEGMENTS,
     FLOAT_SECTION_ALIGN_BYTES,
     FLOAT_VERSION,
     FLOAT_VERSION_ALIGNED,
+    FLOAT_WORD_SIZE,
     FloatType,
     MAX_BLOCK_WORDS32,
     max_compressed_size,
     max_float_compressed_size,
 )
 from ..ops.bitops import from_u32, to_i32, to_u32
-from ..ops.float_split import split16_hist, split16_hist_plain
+from ..ops.float_split import (
+    join_wide,
+    join_wide_plain,
+    split16_hist,
+    split16_hist_plain,
+    split_wide_hist,
+    split_wide_hist_plain,
+)
 from ..ops.merge import runs_merge, runs_merge_plain
 from .ans import (
     META_WORDS,
     SRC_META,
     SRC_PAIRS,
     SRC_STREAMS,
+    ans_decode_core,
     ans_decode_join16_core,
     ans_encode_sections,
 )
@@ -53,7 +69,8 @@ from .ans import (
 FLOAT_MAGIC_VERSION = (FLOAT_MAGIC << 16) | FLOAT_VERSION
 FLOAT_MAGIC_VERSION2 = (FLOAT_MAGIC << 16) | FLOAT_VERSION_ALIGNED
 _FLOAT16_TYPES = (FloatType.FLOAT16, FloatType.BFLOAT16)
-# merge sources of the compress-side archive merge, after the ANS ones
+# merge sources of the compress-side archive merge, after the ANS ones:
+# the float headers, then the raw sections
 _SRC_HDR, _SRC_RAW = 3, 4
 
 
@@ -63,32 +80,42 @@ def _align_section(words):
     return (words + a - 1) // a * a
 
 
-def _raw_words(n):
-    """u32 words of a 16-bit member's raw section (round_up(n, 16) bytes)."""
-    return (n + 15) // 16 * 4
+def _section_word_counts(n, ft: FloatType):
+    """u32 words of a member's two raw sections, each 16 B aligned (the
+    JAX package's ``float_codec.py:73-84``); ints or tensors."""
+    def r(x, m):
+        return (x + m - 1) // m * m
+    if ft in _FLOAT16_TYPES:
+        return r(n, 16) // 4, n * 0
+    if ft == FloatType.FLOAT32:
+        return r(n, 8) // 2, r(n, 16) // 4
+    return r(n, 4), r(n, 8) // 2
 
 
 def _check_type(float_type, native: bool) -> FloatType:
     ft = FloatType(float_type)
-    if ft not in _FLOAT16_TYPES:
-        raise NotImplementedError(f"{ft.name} is not in the port yet")
+    if ft not in FLOAT_WORD_SIZE:
+        raise ValueError(f"unsupported float type {ft.name}")
     if not native:
         raise NotImplementedError("the classic 0xD00D layout is not in the port yet")
     return ft
 
 
-def archive_row_words(W32: int) -> int:
-    """Archive row width CWf (u32 words) for inputs of W32 words (even),
-    the JAX package's ``float_codec.py:176-192``."""
-    S_cap = 2 * W32
+def archive_row_words(W32: int, float_type: FloatType) -> int:
+    """Archive row width CWf (u32 words) for inputs of W32 words (padded
+    for the type), the JAX package's ``float_codec.py:176-192``."""
+    ft = FloatType(float_type)
+    S_cap = 4 * W32 // FLOAT_WORD_SIZE[ft]
     NBp = max(1, -(-S_cap // BLOCK_SIZE))
     ans_tight = min(
         max_compressed_size(S_cap),
         -(-(4 * META_WORDS + 128 * NBp + 8 * ((NBp + 1) // 2 * 2)
             + 4 * MAX_BLOCK_WORDS32 * NBp) // 16) * 16,
     )
-    tight = 4 * (8 + _raw_words(S_cap) + 3 * 128) + ans_tight
-    CWf = min(max_float_compressed_size(FloatType.BFLOAT16, S_cap), tight) // 4
+    s1w_cap, s2w_cap = _section_word_counts(S_cap, ft)
+    tight = (4 * (8 + s1w_cap + s2w_cap + 3 * 128)
+             + FLOAT_NUM_COMP_SEGMENTS[ft] * ans_tight)
+    CWf = min(max_float_compressed_size(ft, S_cap), tight) // 4
     return -(-CWf // 128) * 128
 
 
@@ -101,67 +128,92 @@ def float_compress_core(
     native: bool = True,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Compress u32-packed 16-bit float rows.
+    """Compress u32-packed float rows.
 
-    data32: int32[B, W32] packed float words (u32 bits); n: int[B] float
-    counts (n[b] <= 2 * W32). Returns (out32 int32[B, CWf], the archives,
-    zero past comp_bytes; comp_bytes int64[B]). plain=True runs every
-    kernel's plain PyTorch version wherever the tensors lie (to hold the
-    kernels against them on the card).
+    data32: int32[B, W32] packed float words (u32 bits; an fp64 float is a
+    (lo, hi) word pair); n: int[B] float counts (n[b] <= the row's
+    capacity). Returns (out32 int32[B, CWf], the archives, zero past
+    comp_bytes; comp_bytes int64[B]). plain=True runs every kernel's plain
+    PyTorch version wherever the tensors lie (to hold the kernels against
+    them on the card).
     """
     ft = _check_type(float_type, native)
-    bf16 = ft == FloatType.BFLOAT16
     dev = data32.device
-    if data32.shape[1] % 2:
-        data32 = F.pad(data32, (0, 1))
+    # the split takes whole groups of 4 floats: FLOAT_WORD_SIZE words each
+    req = FLOAT_WORD_SIZE[ft]
+    if data32.shape[1] % req:
+        data32 = F.pad(data32, (0, req - data32.shape[1] % req))
     data32 = data32.contiguous()
     B, W32 = data32.shape
-    S_cap = 2 * W32
+    S_cap = 4 * W32 // FLOAT_WORD_SIZE[ft]
+    P = FLOAT_NUM_COMP_SEGMENTS[ft]
     n64 = n.to(device=dev, dtype=torch.int64)
     if bool(((n64 < 0) | (n64 > S_cap)).any()):
         raise ValueError(f"float counts must lie in [0, {S_cap}]")
     n32 = n64.to(torch.int32)
 
-    split = split16_hist_plain if plain else split16_hist
-    exp, raw, hist, csum_f = split(data32, n32, bf16)
-    # a member's raw section is round_up(n, 16) bytes: give every raw row a
-    # 16 B multiple of zero-padded width so no run reads into the next row
-    if raw.shape[1] % 4:
-        raw = F.pad(raw, (0, 4 - raw.shape[1] % 4))
+    if ft in _FLOAT16_TYPES:
+        split = split16_hist_plain if plain else split16_hist
+        exp, raw, hist, csum_f = split(data32, n32, ft == FloatType.BFLOAT16)
+        secs = [raw]
+    else:
+        if data32.data_ptr() % 16:  # K5 loads 16 B per group of floats
+            data32 = data32.clone()
+        split = split_wide_hist_plain if plain else split_wide_hist
+        exp, sec1, sec2, hist, csum_f = split(data32, n32, ft)
+        secs = [sec1, sec2]
+    # a section run copies a 16 B multiple of words: give every section row
+    # a 16 B multiple of zero-padded width so no run reads into the next row
+    secs = [F.pad(s, (0, -s.shape[1] % 4)) if s.shape[1] % 4 else s
+            for s in secs]
     csum = to_u32(csum_f) if use_checksum else torch.zeros_like(n64)
 
-    seg = ans_encode_sections(exp, n32, hist, prob_bits, S_cap, plain=plain)
+    # one encode for every plane: plane p of member b is member p*B + b
+    seg = ans_encode_sections(exp, n32.repeat(P), hist, prob_bits, S_cap,
+                              plain=plain)
+    seg_bytes = seg.comp_bytes.reshape(P, B)
 
-    s1w = _raw_words(n64)
+    sec_w = _section_word_counts(n64, ft)[: len(secs)]
     is_al = n64 >= FLOAT_ALIGN_MIN
-    o_s1 = torch.where(is_al, 128, 8)
-    o2 = o_s1 + torch.where(is_al, _align_section(s1w), s1w)
-    end = o2 + (seg.comp_bytes >> 2)
+    sec_dst = [torch.where(is_al, 128, 8)]
+    for w in sec_w:
+        sec_dst.append(sec_dst[-1] + torch.where(is_al, _align_section(w), w))
+    plane_dst = [sec_dst.pop()]  # the first ANS archive follows the sections
+    for p in range(P):
+        plane_dst.append(plane_dst[-1] + (seg_bytes[p] >> 2))
+    end = plane_dst.pop()
 
     zeros = torch.zeros_like(n64)
+    first_seg = seg_bytes[0] if P > 1 else zeros
     hdr = torch.stack(
         [torch.where(is_al, FLOAT_MAGIC_VERSION2, FLOAT_MAGIC_VERSION), n64,
-         zeros + (int(ft) | (int(use_checksum) << 4)), csum, zeros, zeros,
+         zeros + (int(ft) | (int(use_checksum) << 4)), csum, first_seg, zeros,
          zeros, zeros],
         dim=1,
     )
 
-    # one merge places every member's header, raw section and ANS runs, in
+    # one merge places every member's header, raw sections and ANS runs, in
     # destination order within each member's archive row; the ANS runs
     # index the first three sources
-    srcs = [None] * 5
+    srcs = [None] * 3 + [from_u32(hdr).reshape(-1)] + [s.reshape(-1) for s in secs]
     srcs[SRC_META] = seg.meta.reshape(-1)
     srcs[SRC_PAIRS] = seg.pairs.reshape(-1)
     srcs[SRC_STREAMS] = seg.streams.reshape(-1)
-    srcs[_SRC_HDR] = from_u32(hdr).reshape(-1)
-    srcs[_SRC_RAW] = raw.reshape(-1)
-    CWf = archive_row_words(W32)
+    CWf = archive_row_words(W32, ft)
     b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
-    dst = torch.cat([zeros[:, None], o_s1[:, None], o2[:, None] + seg.dst], dim=1)
-    hdr_raw = torch.tensor([_SRC_HDR, _SRC_RAW], dtype=torch.int32, device=dev)
-    ref = torch.cat([hdr_raw.expand(B, 2), seg.src_ref], dim=1)
-    off = torch.cat([b_ar * 8, b_ar * raw.shape[1], seg.src_off], dim=1)
-    lens = torch.cat([zeros[:, None] + 8, s1w[:, None], seg.lens], dim=1)
+
+    def planes(t):  # [P*B, k] -> [B, P*k], plane-major per member
+        return torch.cat(list(t.reshape(P, B, -1)), dim=1)
+
+    fixed_ref = torch.tensor([_SRC_HDR] + [_SRC_RAW + i for i in range(len(secs))],
+                             dtype=torch.int32, device=dev)
+    dst = torch.cat([zeros[:, None]] + [d[:, None] for d in sec_dst]
+                    + [planes(torch.cat(plane_dst)[:, None] + seg.dst)], dim=1)
+    ref = torch.cat([fixed_ref.expand(B, -1), planes(seg.src_ref)], dim=1)
+    off = torch.cat([b_ar * 8] + [b_ar * s.shape[1] for s in secs]
+                    + [planes(seg.src_off)], dim=1)
+    lens = torch.cat([zeros[:, None] + 8] + [w[:, None] for w in sec_w]
+                     + [planes(seg.lens)], dim=1)
     merge = runs_merge_plain if plain else runs_merge
     out = merge(
         srcs, (dst + b_ar * CWf).reshape(-1), ref.reshape(-1), off.reshape(-1),
@@ -181,14 +233,16 @@ def float_decompress_core(
     native: bool = True,
     plain: bool = False,
 ):
-    """Decompress 16-bit float archives at per-member word offsets base32
-    of comp32's rows (int32[B, CW]).
+    """Decompress float archives at per-member word offsets base32 of
+    comp32's rows (int32[B, CW]).
 
-    Returns (words32 int32[B, ceil(out_floats / 2)], zero past n and for
-    failed members; success bool[B]; n int64[B]; the archive's checksum
-    int64[B]; the computed checksum, zeros). A member fails, raising
-    nothing, on a wrong header, a failed ANS validation, or n above its
-    capacity (default out_floats). plain=True as in float_compress_core.
+    Returns (words32 int32[B, OW], zero past n and for failed members, with
+    OW = ceil(out_floats / 2) for 16-bit types and 4E (fp32) or 8E (fp64)
+    for E = max(ceil(out_floats / 4), 1); success bool[B]; n int64[B]; the
+    archive's checksum int64[B]; the computed checksum, zeros). A member
+    fails, raising nothing, on a wrong header, a failed ANS validation, or
+    n above its capacity (default out_floats). plain=True as in
+    float_compress_core.
     """
     ft = _check_type(float_type, native)
     if verify_checksum:
@@ -202,39 +256,82 @@ def float_decompress_core(
     hdr = to_u32(torch.gather(comp32, 1, idx))
     n = to_i32(hdr[:, 1])
     csum_arch = hdr[:, 3]
+    first_seg = to_i32(hdr[:, 4])
     is_al = hdr[:, 0] == FLOAT_MAGIC_VERSION2
     valid = (
         ((hdr[:, 0] == FLOAT_MAGIC_VERSION) | is_al)
         & ((hdr[:, 2] & 0xF) == int(ft))
         & (n >= 0)
     )
+    if FLOAT_NUM_COMP_SEGMENTS[ft] > 1:
+        # the second archive must not start before the first
+        valid = valid & (first_seg >= 0)
     n = torch.where(valid, n, 0)
+    first_seg = torch.where(valid, first_seg, 0)
     is_al = is_al & valid
     if capacities is None:
         capacities = torch.full((B,), out_floats, dtype=torch.int64, device=dev)
     success = valid & (n <= capacities.to(device=dev, dtype=torch.int64))
 
-    s1w = _raw_words(n)
+    s1w, s2w = _section_word_counts(n, ft)
     o_s1 = torch.where(is_al, 128, 8)
-    ans_base = base + o_s1 + torch.where(is_al, _align_section(s1w), s1w)
-
-    # raw section staged block-major: 1024 words per 4096-float block
-    NB = max(1, -(-out_floats // BLOCK_SIZE))
+    o_s2 = o_s1 + torch.where(is_al, _align_section(s1w), s1w)
+    ans_base = base + o_s2 + torch.where(is_al, _align_section(s2w), s2w)
     b_ar = torch.arange(B, dtype=torch.int64, device=dev)
     merge = runs_merge_plain if plain else runs_merge
-    raw32 = merge(
-        [comp32.reshape(-1)],
-        b_ar * (NB * 1024),
-        torch.zeros(B, dtype=torch.int32, device=dev),
-        b_ar * CW + base + o_s1,
-        s1w.clamp(max=NB * 1024),
-        B * NB * 1024,
-    ).reshape(B, NB, 1024)
 
-    words32, ok, psize, _ = ans_decode_join16_core(
-        comp32, ans_base, raw32, out_floats, prob_bits,
-        ft == FloatType.BFLOAT16, capacities, plain=plain,
+    if ft in _FLOAT16_TYPES:
+        # raw section staged block-major: 1024 words per 4096-float block
+        NB = max(1, -(-out_floats // BLOCK_SIZE))
+        raw32 = merge(
+            [comp32.reshape(-1)],
+            b_ar * (NB * 1024),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            b_ar * CW + base + o_s1,
+            s1w.clamp(max=NB * 1024),
+            B * NB * 1024,
+        ).reshape(B, NB, 1024)
+        words32, ok, psize, _ = ans_decode_join16_core(
+            comp32, ans_base, raw32, out_floats, prob_bits,
+            ft == FloatType.BFLOAT16, capacities, plain=plain,
+        )
+        success = success & ok & (psize == n)
+        words32 = torch.where(success[:, None], words32, 0)
+        return words32, success, n, csum_arch, torch.zeros_like(n)
+
+    # one decode per exponent plane; the second archive starts first_seg
+    # bytes after the first
+    E = max(-(-out_floats // 4), 1)
+    planes = []
+    for p in range(FLOAT_NUM_COMP_SEGMENTS[ft]):
+        plane, ok, psize, _ = ans_decode_core(
+            comp32, ans_base + p * (first_seg >> 2), out_floats, prob_bits,
+            capacities, plain=plain,
+        )
+        if plane.shape[1] < E:  # out_floats == 0
+            plane = F.pad(plane, (0, E - plane.shape[1]))
+        planes.append(plane)
+        success = success & ok & (psize == n)
+
+    # both raw sections staged by one merge, each row at least as wide as
+    # the join reads
+    k1, k2 = (2, 1) if ft == FloatType.FLOAT32 else (4, 2)
+    C1, C2 = (max(c, k * E) for c, k in
+              zip(_section_word_counts(out_floats, ft), (k1, k2)))
+    abs_base = b_ar * CW + base
+    stage = merge(
+        [comp32.reshape(-1)],
+        torch.cat([b_ar * C1, B * C1 + b_ar * C2]),
+        torch.zeros(2 * B, dtype=torch.int32, device=dev),
+        torch.cat([abs_base + o_s1, abs_base + o_s2]),
+        torch.cat([s1w.clamp(max=C1), s2w.clamp(max=C2)]),
+        B * (C1 + C2),
     )
-    success = success & ok & (psize == n)
-    words32 = torch.where(success[:, None], words32, 0)
+    sec1 = stage[: B * C1].reshape(B, C1)
+    sec2 = stage[B * C1:].reshape(B, C2)
+
+    # planes and sections are zero past n, so the join is too; one select
+    # zeroes failed members
+    join = join_wide_plain if plain else join_wide
+    words32 = torch.where(success[:, None], join(planes, sec1, sec2, ft), 0)
     return words32, success, n, csum_arch, torch.zeros_like(n)

@@ -1,28 +1,38 @@
-"""16-bit float split and join (fp16, bf16), with the split's byte
-histogram and XOR checksum: kernel K1 and its plain version.
+"""Float split and join, with the split's byte histograms and XOR
+checksum: kernels K1 (16-bit split), K5 (fp32/fp64 split), K7 (fp32/fp64
+join) and their plain versions.
 
 Layouts (little-endian bytes within each u32 word, as in the archive and
-in the JAX package's ``ops/float_split.py:80-91``):
+in the JAX package's portable ``ops/float_split.py:16-23, 80-115``):
 
-* exponent plane: the high byte of each float (bf16 after a rotate-left
-  by 1 within 16 bits, which moves the sign into the raw byte), 4 floats
-  per word;
-* raw section: the low byte of each float, 4 per word, bytes >= n zeroed.
+* fp16/bf16: exponent plane = the high byte of each float (bf16 after a
+  rotate-left by 1 within 16 bits, which moves the sign into the raw
+  byte), 4 floats per word; raw section = the low byte, 4 per word.
+* fp32, after a rotate-left by 1 of each word: exponent plane = the top
+  byte, 4 floats per word; sec1 = the low 16 bits, 2 floats per word;
+  sec2 = the third byte, 4 floats per word.
+* fp64, a (lo, hi) u32 pair per float, rotated left by 1 across the pair:
+  exp0 = the top byte of v_hi, exp1 = the next byte, each 4 floats per
+  word; sec1 = v_lo, one word per float; sec2 = the low 16 bits of v_hi,
+  2 floats per word.
 
-``split16_hist`` sends a CUDA tensor to the kernel
-(``csrc/split16_hist.cu``) and a CPU tensor to ``split16_hist_plain``,
-built from the JAX package's ``split_packed`` + ``histogram_packed`` +
-``checksum_packed`` + ``mask_packed_bytes``.
+Raw-section bytes at or past a member's count are zeroed by the split.
+
+``split16_hist``, ``split_wide_hist`` and ``join_wide`` send CUDA tensors
+to the kernels (``csrc/split16_hist.cu``, ``csrc/split_wide_hist.cu``,
+``csrc/join_wide.cu``) and CPU tensors to their plain versions, built
+from the JAX package's ``split_packed`` + ``histogram_packed`` +
+``checksum_packed`` + ``mask_packed_bytes``, and ``join_packed``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from ..core.config import use_kernels
-from ..core.constants import NUM_SYMBOLS
+from ..core.constants import FLOAT_WORD_SIZE, NUM_SYMBOLS, FloatType
 from ..runtime import cuda_kernels as K
 from .bitops import M32, from_u32, to_u32
 
@@ -46,6 +56,17 @@ def _pack4(b0, b1, b2, b3):
 def unpack_bytes(x: torch.Tensor) -> torch.Tensor:
     """u32 words (int64 carriers) [..., W] -> bytes (int64) [..., 4W]."""
     return torch.stack([_b(x, k) for k in range(4)], dim=-1).flatten(-2)
+
+
+def pack_bytes(by: torch.Tensor) -> torch.Tensor:
+    """Bytes (int64) [..., 4W] -> u32 words (int64 carriers) [..., W]."""
+    return _pack4(*by.unflatten(-1, (-1, 4)).unbind(-1))
+
+
+def _halves(x: torch.Tensor) -> torch.Tensor:
+    """u32 words (int64) [..., W] -> their 16-bit halves [..., 2W], low
+    half first."""
+    return torch.stack([x & 0xFFFF, x >> 16], dim=-1).flatten(-2)
 
 
 def mask_packed_bytes(x: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
@@ -80,13 +101,17 @@ def checksum_packed(x: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
     return (w ^ (w >> 8)) & 0xFF
 
 
-def _check_split_args(data32, n):
+def _check_split_args(data32, n, row_mult: int = 2):
+    """row_mult: the words of one group of 4 floats (one exponent-plane
+    word), which is the float's byte width."""
     if data32.dtype != torch.int32 or data32.dim() != 2:
         raise TypeError("data32 must be a 2-D torch.int32 tensor of u32 words")
     if not data32.is_contiguous():
         raise ValueError("data32 must be contiguous")
-    if data32.shape[1] % 2:
-        raise ValueError(f"data32 needs an even row width, got {data32.shape[1]}")
+    if data32.shape[1] % row_mult:
+        raise ValueError(
+            f"data32 needs a row width that is a multiple of {row_mult}, "
+            f"got {data32.shape[1]}")
     if n.dtype != torch.int32 or n.shape != (data32.shape[0],):
         raise TypeError("n must be torch.int32 of shape [B]")
     if not n.is_contiguous():
@@ -133,3 +158,120 @@ def join16(exp_bytes: torch.Tensor, raw_bytes: torch.Tensor, bf16: bool):
     v = raw_bytes | (exp_bytes << 8)
     w = v[..., 0::2] | (v[..., 1::2] << 16)
     return _rotr16x2(w) if bf16 else w
+
+
+def _wide_type(float_type) -> FloatType:
+    ft = FloatType(float_type)
+    if ft not in (FloatType.FLOAT32, FloatType.FLOAT64):
+        raise ValueError(f"{ft.name} is not fp32 or fp64")
+    return ft
+
+
+def split_wide_hist(data32: torch.Tensor, n: torch.Tensor, float_type):
+    """Split u32-packed fp32 or fp64 rows.
+
+    data32: int32[B, W32] (W32 % 4 == 0 for fp32, % 8 for fp64; fp64 floats
+    are (lo, hi) word pairs); n: int32[B] float counts. Returns
+    (exp int32[P*B, E], plane p of member b in row p*B + b, with P = 1 and
+    E = W32/4 for fp32, P = 2 and E = W32/8 for fp64; sec1 int32[B, W32/2];
+    sec2 int32[B, W32/4], both zero at bytes past the member's count; hist
+    int32[P*B, 256] over the first n bytes of each plane; csum int32[B],
+    the XOR of the first n*ws input bytes).
+    """
+    ft = _wide_type(float_type)
+    _check_split_args(data32, n, FLOAT_WORD_SIZE[ft])
+    if use_kernels(data32):
+        return K.split_wide_hist(data32, n, ft)
+    return split_wide_hist_plain(data32, n, ft)
+
+
+def split_wide_hist_plain(data32, n, float_type):
+    """Plain PyTorch version of K5; runs on any device."""
+    ft = _wide_type(float_type)
+    _check_split_args(data32, n, FLOAT_WORD_SIZE[ft])
+    x = to_u32(data32)
+    n64 = n.to(torch.int64)
+    if ft == FloatType.FLOAT32:
+        r = ((x << 1) | (x >> 31)) & M32
+        w = [r[:, k::4] for k in range(4)]
+        planes = [_pack4(*(wk >> 24 for wk in w))]
+        sec1 = (r[:, 0::2] & 0xFFFF) | ((r[:, 1::2] & 0xFFFF) << 16)
+        sec2 = _pack4(*(_b(wk, 2) for wk in w))
+        nb1, nb2 = 2 * n64, n64
+    else:
+        lo, hi = x[:, 0::2], x[:, 1::2]
+        v_hi = ((hi << 1) | (lo >> 31)) & M32
+        v_lo = ((lo << 1) | (hi >> 31)) & M32
+        h = [v_hi[:, k::4] for k in range(4)]
+        planes = [_pack4(*(hk >> 24 for hk in h)),
+                  _pack4(*(_b(hk, 2) for hk in h))]
+        sec1 = v_lo
+        sec2 = (v_hi[:, 0::2] & 0xFFFF) | ((v_hi[:, 1::2] & 0xFFFF) << 16)
+        nb1, nb2 = 4 * n64, 2 * n64
+    hist = torch.cat([histogram_packed(p, n64) for p in planes])
+    csum = checksum_packed(x, FLOAT_WORD_SIZE[ft] * n64)
+    return (
+        from_u32(torch.cat(planes)),
+        from_u32(mask_packed_bytes(sec1, nb1)),
+        from_u32(mask_packed_bytes(sec2, nb2)),
+        hist.to(torch.int32),
+        csum.to(torch.int32),
+    )
+
+
+def _check_join_args(planes, sec1, sec2, ft):
+    P = 2 if ft == FloatType.FLOAT64 else 1
+    if len(planes) != P:
+        raise ValueError(f"{ft.name} takes {P} exponent plane(s)")
+    B, E = planes[0].shape
+    k1, k2 = (2, 1) if P == 1 else (4, 2)
+    for name, t, w in [("exp", p, E) for p in planes] + [
+            ("sec1", sec1, k1 * E), ("sec2", sec2, k2 * E)]:
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise TypeError(f"{name} must be a 2-D torch.int32 tensor")
+        if t.shape[0] != B or t.shape[1] < w:
+            raise ValueError(f"{name} needs shape [{B}, >= {w}], got {tuple(t.shape)}")
+        if t.stride(1) != 1:
+            raise ValueError(f"{name} rows must be contiguous")
+        if t.device != planes[0].device:
+            raise ValueError("all inputs must lie on one device")
+    if E == 0:
+        raise ValueError("the exponent planes must not be empty")
+
+
+def join_wide(planes: Sequence[torch.Tensor], sec1: torch.Tensor,
+              sec2: torch.Tensor, float_type) -> torch.Tensor:
+    """Join fp32 or fp64 planes and raw sections back into float words:
+    the inverse of ``split_wide_hist``.
+
+    planes: [exp] (fp32) or [exp0, exp1] (fp64), each int32[B, E]; sec1,
+    sec2: int32 rows of at least 2E, E words (fp32) or 4E, 2E (fp64),
+    only those first words read. Rows need contiguous words, not
+    contiguous tensors. Returns int32[B, 4E] (fp32) or [B, 8E] (fp64);
+    words are zero wherever every input byte of their float is.
+    """
+    ft = _wide_type(float_type)
+    _check_join_args(list(planes), sec1, sec2, ft)
+    if use_kernels(sec1):
+        return K.join_wide(list(planes), sec1, sec2, ft)
+    return join_wide_plain(planes, sec1, sec2, ft)
+
+
+def join_wide_plain(planes, sec1, sec2, float_type):
+    """Plain PyTorch version of K7; runs on any device."""
+    ft = _wide_type(float_type)
+    _check_join_args(list(planes), sec1, sec2, ft)
+    E = planes[0].shape[1]
+    e = [unpack_bytes(to_u32(p)) for p in planes]  # one byte per float
+    if ft == FloatType.FLOAT32:
+        low = _halves(to_u32(sec1[:, : 2 * E]))
+        third = unpack_bytes(to_u32(sec2[:, :E]))
+        r = low | (third << 16) | (e[0] << 24)
+        out = ((r >> 1) | (r << 31)) & M32
+    else:
+        v_lo = to_u32(sec1[:, : 4 * E])
+        v_hi = _halves(to_u32(sec2[:, : 2 * E])) | (e[1] << 16) | (e[0] << 24)
+        lo = ((v_lo >> 1) | (v_hi << 31)) & M32
+        hi = ((v_hi >> 1) | (v_lo << 31)) & M32
+        out = torch.stack([lo, hi], dim=-1).flatten(-2)
+    return from_u32(out)

@@ -1,17 +1,23 @@
-"""Row-stream (0xDB0D) rANS decode fused with the 16-bit float join:
-kernel K4 and its plain version.
+"""Row-stream (0xDB0D) rANS decode: kernel K6 (to packed bytes), kernel K4
+(fused with the 16-bit float join), and their plain versions, which share
+one walk.
 
 Each row of 4 blocks shares one reverse cursor over its stream. The walk is
 bottom-aligned (block iteration k = i - (128 - nsteps) at step i), so every
 active block of a row undoes the same encode step and the stream's reverse
 order is one suffix count over the row's 128 lanes
-(the JAX package's ``ops/rans_decode.py:135``, ``decode_blocks_rows``). The
-decoded exponent byte of each float is joined with its raw byte
-(``float_split.py:193-202``): out = raw | sym << 8, rotated right by 1 within
-16 bits for bf16, and 0 at positions at or past a block's decoded count.
+(the JAX package's ``ops/rans_decode.py:135``, ``decode_blocks_rows``).
+Symbols at or past a block's decoded count are 0.
 
-``decode_join16`` sends CUDA tensors to the kernel
-(``csrc/rans_decode_join16.cu``) and CPU tensors to ``decode_join16_plain``.
+* ``decode_rows`` packs the symbols into u32 words: the contract of
+  ``decode_blocks_rows`` and of the Pallas ``decode_blocks_fused2`` with
+  ``row_stream=True``.
+* ``decode_join16`` joins each exponent byte with its raw byte
+  (``float_split.py:193-202``): out = raw | sym << 8, rotated right by 1
+  within 16 bits for bf16, and 0 at positions at or past a block's count.
+
+Both send CUDA tensors to the kernels (``csrc/rans_decode_rows.cu``) and
+CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ from ..core.constants import (
 )
 from ..runtime import cuda_kernels as K
 from .bitops import M32, from_u32, to_u32
-from .float_split import join16, unpack_bytes
+from .float_split import join16, pack_bytes, unpack_bytes
 
 
-def _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits):
+def _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       raw32=None):
     if prob_bits not in VALID_PROB_BITS:
         raise ValueError(f"prob_bits must be one of {VALID_PROB_BITS}")
     if streams.dim() != 3:
@@ -43,14 +50,16 @@ def _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits)
     NB = comp_w.shape[1]
     if NR != -(-NB // 4):
         raise ValueError(f"streams has {NR} rows for {NB} blocks")
-    for name, t, shape in (
+    checks = [
         ("streams", streams, streams.shape),
         ("comp_w", comp_w, (B, NB)),
         ("uncomp_w", uncomp_w, (B, NB)),
         ("states", states, (B, NB, WARP_SIZE)),
         ("lut", lut, (B, 1 << prob_bits)),
-        ("raw32", raw32, (B, NB, BLOCK_SIZE // 4)),
-    ):
+    ]
+    if raw32 is not None:
+        checks.append(("raw32", raw32, (B, NB, BLOCK_SIZE // 4)))
+    for name, t, shape in checks:
         if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
             raise TypeError(f"{name} must be torch.int32 of shape {tuple(shape)}")
         if t.device != streams.device:
@@ -59,18 +68,39 @@ def _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits)
             raise ValueError(f"{name} must be contiguous")
 
 
-def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
-                  prob_bits: int, bf16: bool) -> torch.Tensor:
-    """Decode every block of a batch and join it into 16-bit floats.
+def decode_rows(streams, comp_w, uncomp_w, states, lut,
+                prob_bits: int) -> torch.Tensor:
+    """Decode every block of a batch into packed bytes.
 
     streams: int32[B, NR, SW] start-aligned staged row streams (u16 pairs);
     comp_w / uncomp_w: int32[B, NB] per-block u16 word and byte counts
     (uncomp_w <= 4096; 0 for dead blocks); states: int32[B, NB, 32]; lut:
-    int32[B, 2^prob_bits] from ``build_decode_table_batched``; raw32:
-    int32[B, NB, 1024] block-major raw-section words. Returns
-    int32[B, NB, 2048]: two floats per word, zero past each block's count.
+    int32[B, 2^prob_bits] from ``build_decode_table_batched``. Returns
+    int32[B, NB, 1024]: four bytes per word, zero past each block's count.
     """
-    _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits)
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    if use_kernels(streams):
+        return K.decode_rows(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    return decode_rows_plain(streams, comp_w, uncomp_w, states, lut, prob_bits)
+
+
+def decode_rows_plain(streams, comp_w, uncomp_w, states, lut,
+                      prob_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of K6; runs on any device."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    sym = _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    return from_u32(pack_bytes(sym))
+
+
+def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
+                  prob_bits: int, bf16: bool) -> torch.Tensor:
+    """Decode every block of a batch and join it into 16-bit floats.
+
+    Arguments as ``decode_rows``, plus raw32: int32[B, NB, 1024]
+    block-major raw-section words. Returns int32[B, NB, 2048]: two floats
+    per word, zero past each block's count.
+    """
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits, raw32)
     if use_kernels(streams):
         return K.decode_join16(
             streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
@@ -83,7 +113,17 @@ def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
 def decode_join16_plain(streams, comp_w, uncomp_w, states, lut, raw32,
                         prob_bits: int, bf16: bool) -> torch.Tensor:
     """Plain PyTorch version of K4; runs on any device."""
-    _check_decode_args(streams, comp_w, uncomp_w, states, lut, raw32, prob_bits)
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits, raw32)
+    sym = _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    p = torch.arange(BLOCK_SIZE, dtype=torch.int64, device=streams.device)
+    keep = p < uncomp_w.to(torch.int64)[..., None]
+    raw = torch.where(keep, unpack_bytes(to_u32(raw32)), 0)
+    return from_u32(join16(sym, raw, bf16))
+
+
+def _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
+    """The decode walk over every row. Returns the symbols, int64
+    [B, NB, 4096], 0 at positions at or past each block's count."""
     dev = streams.device
     B, NR, SW = streams.shape
     NB = comp_w.shape[1]
@@ -132,7 +172,4 @@ def decode_join16_plain(streams, comp_w, uncomp_w, states, lut, raw32,
         .reshape(B, NB4, BLOCK_SIZE)[:, :NB]
     )
     p = torch.arange(BLOCK_SIZE, dtype=torch.int64, device=dev)
-    keep = p < uncomp_w.to(torch.int64)[..., None]
-    raw = unpack_bytes(to_u32(raw32))
-    words = join16(torch.where(keep, sym, 0), torch.where(keep, raw, 0), bf16)
-    return from_u32(words)
+    return torch.where(p < uncomp_w.to(torch.int64)[..., None], sym, 0)

@@ -1,10 +1,11 @@
 """The port's hand-written CUDA kernels: build, load, launch, count.
 
 The sources in ``dietgpu_fork_torch/csrc/*.cu`` have a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` (Hopper) into
-one shared library under ``dietgpu_fork_torch/build/``, named by a hash of
-the sources and flags, and loaded with ctypes. Nothing is built or loaded
-when this module is imported.
+At first use each is compiled with ``nvcc`` for ``sm_90a`` (Hopper), one
+process per source, all started together; the objects are linked into one
+shared library under ``dietgpu_fork_torch/build/``, named by a hash of the
+sources and flags, and loaded with ctypes. Nothing is built or loaded when
+this module is imported.
 
 Each wrapper takes CUDA tensors that the op modules (``ops/*.py``) have
 already checked, allocates its outputs with torch, launches on the current
@@ -25,7 +26,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from ..core.constants import MAX_ROW_WORDS32, NUM_SYMBOLS, WARP_SIZE
+from ..core.constants import MAX_ROW_WORDS32, NUM_SYMBOLS, WARP_SIZE, FloatType
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,11 +35,13 @@ SOURCES = (
     "split16_hist.cu",
     "rans_encode_rows.cu",
     "runs_merge.cu",
-    "rans_decode_join16.cu",
+    "rans_decode_rows.cu",
+    "split_wide_hist.cu",
+    "join_wide.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Launches of each kernel since the last reset_launches().
@@ -47,6 +50,9 @@ launches: Dict[str, int] = {
     "rans_encode_rows": 0,
     "runs_merge": 0,
     "rans_decode_join16": 0,
+    "split_wide_hist": 0,
+    "rans_decode_rows": 0,
+    "join_wide": 0,
 }
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
@@ -83,18 +89,33 @@ def _build() -> Path:
     out = BUILD_DIR / f"libdgt_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    work = BUILD_DIR / f"{out.stem}.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [work / f"{s.stem}.o" for s in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    build_info["log"] = "".join(logs)
+    failed = [(s.name, p.returncode, log)
+              for s, p, log in zip(srcs, procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} (code {rc}):\n{log}" for name, rc, log in failed))
+    tmp = work / out.name
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = res.stdout + res.stderr
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stdout}{res.stderr}"
-        )
+            f"linking failed with code {res.returncode}:\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -111,6 +132,9 @@ def library() -> ctypes.CDLL:
         "dgt_rans_encode_rows": [P, P, P, P, L, L, I, P, P, P, P],
         "dgt_runs_merge": [P, P, I, P, P, P, P, L, P, L, P],
         "dgt_rans_decode_join16": [P, L, P, P, P, P, I, P, L, L, I, P, P],
+        "dgt_split_wide_hist": [P, L, L, P, I, P, P, P, P, P, P],
+        "dgt_rans_decode_rows": [P, L, P, P, P, P, I, L, L, P, P],
+        "dgt_join_wide": [P, L, P, L, P, L, P, L, L, L, I, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -228,4 +252,79 @@ def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
         )
     _check(lib, err, "rans_decode_join16")
     launches["rans_decode_join16"] += 1
+    return out
+
+
+def _aligned(t: torch.Tensor, nbytes: int, name: str) -> None:
+    """Each row of t must start on an nbytes boundary (vector accesses)."""
+    if t.data_ptr() % nbytes or (t.shape[0] > 1 and (4 * t.stride(0)) % nbytes):
+        raise ValueError(f"{name} rows must start on {nbytes} B boundaries")
+
+
+def split_wide_hist(data32: torch.Tensor, n: torch.Tensor, float_type):
+    """K5 launch; arguments as ``ops.float_split.split_wide_hist``."""
+    _cuda_only(data32, n)
+    fp64 = FloatType(float_type) == FloatType.FLOAT64
+    B, W32 = data32.shape
+    _batch_ok(B)
+    _aligned(data32, 16, "data32")
+    P, E = (2, W32 // 8) if fp64 else (1, W32 // 4)
+    dev = data32.device
+    exp = torch.empty((P * B, E), dtype=torch.int32, device=dev)
+    sec1 = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
+    sec2 = torch.empty((B, W32 // 4), dtype=torch.int32, device=dev)
+    hist = torch.zeros((P * B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    csum = torch.zeros((B,), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_split_wide_hist(
+            data32.data_ptr(), B, W32, n.data_ptr(), int(fp64), exp.data_ptr(),
+            sec1.data_ptr(), sec2.data_ptr(), hist.data_ptr(), csum.data_ptr(),
+            _stream(data32),
+        )
+    _check(lib, err, "split_wide_hist")
+    launches["split_wide_hist"] += 1
+    return exp, sec1, sec2, hist, csum
+
+
+def decode_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
+    """K6 launch; arguments as ``ops.rans_decode.decode_rows``."""
+    _cuda_only(streams, comp_w, uncomp_w, states, lut)
+    B, NR, SW = streams.shape
+    _batch_ok(B)
+    NB = comp_w.shape[1]
+    dev = streams.device
+    out = torch.empty((B, NB, 1024), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_rans_decode_rows(
+            streams.data_ptr(), SW, comp_w.data_ptr(), uncomp_w.data_ptr(),
+            states.data_ptr(), lut.data_ptr(), prob_bits, B, NB,
+            out.data_ptr(), _stream(streams),
+        )
+    _check(lib, err, "rans_decode_rows")
+    launches["rans_decode_rows"] += 1
+    return out
+
+
+def join_wide(planes, sec1, sec2, float_type):
+    """K7 launch; arguments as ``ops.float_split.join_wide``."""
+    _cuda_only(*planes, sec1, sec2)
+    fp64 = FloatType(float_type) == FloatType.FLOAT64
+    B, E = planes[0].shape
+    _batch_ok(B)
+    _aligned(sec1, 16 if fp64 else 8, "sec1")
+    _aligned(sec2, 8 if fp64 else 4, "sec2")
+    exp1 = planes[1] if fp64 else planes[0]
+    dev = sec1.device
+    out = torch.empty((B, (8 if fp64 else 4) * E), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_join_wide(
+            planes[0].data_ptr(), planes[0].stride(0), exp1.data_ptr(),
+            exp1.stride(0), sec1.data_ptr(), sec1.stride(0), sec2.data_ptr(),
+            sec2.stride(0), B, E, int(fp64), out.data_ptr(), _stream(sec1),
+        )
+    _check(lib, err, "join_wide")
+    launches["join_wide"] += 1
     return out

@@ -72,6 +72,9 @@ def test_float_types_equal_jax():
     assert {int(k): v for k, v in T.FLOAT_WORD_SIZE.items()} == {
         int(k): v for k, v in J.FLOAT_WORD_SIZE.items()
     }
+    assert {int(k): v for k, v in T.FLOAT_NUM_COMP_SEGMENTS.items()} == {
+        int(k): v for k, v in J.FLOAT_NUM_COMP_SEGMENTS.items()
+    }
 
 
 def test_stream_bounds_equal_jax():
@@ -96,7 +99,9 @@ def test_size_functions_equal_jax(size):
 
 
 @pytest.mark.parametrize(
-    "wrapper", ["split16_hist", "encode_rows", "runs_merge", "decode_join16"]
+    "wrapper",
+    ["split16_hist", "encode_rows", "runs_merge", "decode_join16",
+     "split_wide_hist", "decode_rows", "join_wide"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper never runs, builds or falls back on a CPU tensor."""
@@ -109,6 +114,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "runs_merge": ([t[0]], t[0, :1].long(), t[0, :1], t[0, :1].long(),
                        t[0, :1].long(), 4),
         "decode_join16": (t[None], t, t, t, t, t, 10, True),
+        "split_wide_hist": (t, t[0, :1], T.FloatType.FLOAT32),
+        "decode_rows": (t[None], t, t, t, t, 10),
+        "join_wide": ([t], t, t, T.FloatType.FLOAT32),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(K, wrapper)(*args)
