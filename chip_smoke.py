@@ -4,24 +4,36 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the seven CUDA kernels from
+   versions, and builds the eight CUDA kernels from
    ``dietgpu_fork_torch/csrc`` (nvcc, sm_90a, one process per source),
    printing the build time;
 2. drives each main path once with every kernel wrapper recording its
-   calls, then holds each kernel against its plain PyTorch version on the
-   recorded inputs (the main path's own shapes), bit for bit, and times
-   both with CUDA events;
-3. drives the main paths -- ``float_compress_core`` then
-   ``float_decompress_core`` on 16Mi N(0,1) floats of bf16, fp32 and fp64,
-   prob_bits 10, native row-stream layout, batch 1 -- each with the launch
-   counters reset just before and read just after, and checks the round
-   trip, the archive against the all-plain path's archive, cross-decoding
-   both ways, and that every kernel of the path ran;
+   calls, then holds each kernel and mode against its plain PyTorch
+   version on the recorded inputs (the main path's own shapes), bit for
+   bit, and times both with CUDA events;
+3. drives the main paths, each with the launch counters reset just before
+   and read just after, and checks the round trip, the archive against the
+   all-plain path's archive, cross-decoding both ways, and that every
+   kernel of the path ran. The paths, prob_bits 10, batch 1, 16Mi N(0,1)
+   floats:
+   - ``float_compress_core`` then ``float_decompress_core`` in bf16, fp32
+     and fp64, native row-stream layout;
+   - A: the API (``api.codec.compress_data`` / ``decompress_data``) on the
+     bf16 tensor, checksum on, the default layout (native on the card),
+     whose archive must equal ``float_compress_core``'s;
+   - B: raw ANS through the API on the same 32 MiB as bytes, checksum on;
+   - C: A and B in the classic 0xD00D layout, and fp32 classic;
 4. links the port to the JAX reference without JAX: the archive of a fixed
    v2-container input of each type must hash to its ``GOLDEN_V2_SHA256``
-   entry, which the CPU tests hold equal to the NumPy oracle's archive;
+   entry, and a classic bf16 and a classic raw-ANS archive to their
+   ``GOLDEN_SHA256`` entries; the CPU tests hold each equal to the NumPy
+   oracle's archive;
 5. round-trips a ragged bf16 batch of 128 members and ragged fp32 and
-   fp64 batches of 64 members, each of up to 128Ki floats;
+   fp64 batches of 64 members, each of up to 128Ki floats; then D, the
+   reference's large batch, 128 x 512Ki bf16 through the API; E, the
+   split-size API on one 16Mi bf16 tensor in ragged members, back to one
+   contiguous CUDA tensor; F, a flipped raw byte in A's archive, which
+   ``decompress_data(..., checksum=True)`` must refuse with RuntimeError;
 6. times compress and decompress of each main path (3 warm-ups, median of
    10) on the kernel path, and the all-plain path (median of 3).
 
@@ -42,10 +54,17 @@ import time
 import numpy as np
 import torch
 
+from dietgpu_fork_torch.api import codec as C
 from dietgpu_fork_torch.core.constants import FLOAT_WORD_SIZE, FloatType
-from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
+from dietgpu_fork_torch.core.interop import (
+    floats_from_words,
+    rows_from_numpy,
+    rows_to_numpy,
+)
+from dietgpu_fork_torch.models.ans import ans_decode_padded, ans_encode_padded
 from dietgpu_fork_torch.models.float_codec import (
     float_compress_core,
+    float_compress_padded,
     float_decompress_core,
 )
 from dietgpu_fork_torch.ops.float_split import (
@@ -53,9 +72,15 @@ from dietgpu_fork_torch.ops.float_split import (
     split16_hist_plain,
     split_wide_hist_plain,
 )
+from dietgpu_fork_torch.ops.histogram import byte_hist_plain
 from dietgpu_fork_torch.ops.merge import runs_merge_plain
-from dietgpu_fork_torch.ops.rans_decode import decode_join16_plain, decode_rows_plain
-from dietgpu_fork_torch.ops.rans_encode import encode_rows_plain
+from dietgpu_fork_torch.ops.rans_decode import (
+    decode_blocks_plain,
+    decode_join16_blocks_plain,
+    decode_join16_plain,
+    decode_rows_plain,
+)
+from dietgpu_fork_torch.ops.rans_encode import encode_blocks_plain, encode_rows_plain
 from dietgpu_fork_torch.runtime import cuda_kernels as K
 
 BF16, FP32, FP64 = FloatType.BFLOAT16, FloatType.FLOAT32, FloatType.FLOAT64
@@ -69,11 +94,25 @@ GOLDEN_V2_SHA256 = {
     FP32: "515251ff1df004ebfb0ad4e24e08e6e735bd5cf7784c6666408d2fa4e940607c",
     FP64: "f352defde63561233416f642fac10fb0b35902887d7fc6986e88cb4028818f7c",
 }
+# sha256 of the classic (0xD00D) archives of the same bf16 input: through
+# the float codec, and as raw bytes through raw ANS with the checksum on.
+# tests/test_torch_classic.py holds both equal to the NumPy oracle's
+# (float_compress and ans_encode) and to the port's plain path.
+GOLDEN_SHA256 = {
+    "bf16_classic": "3da3fe253d879977414b663fa9550514d037eacf3bb494d140c4b6510bd16ec9",
+    "raw_classic": "6346a842581fe1b56a5208729aaef57ab36c2e45f852b45709ce10e2428de17d",
+}
 GOLDEN_N = (1 << 20) + 4097
 MAIN_N = 1 << 24
-MAIN_TYPES = (BF16, FP32, FP64)
+D_COUNT, D_N = 128, 1 << 19  # phase D: the reference's large batch
 PROB_BITS = 10
 _WORD_DTYPE = {BF16: np.uint16, FP32: np.uint32, FP64: np.uint64}
+_TORCH_DTYPE = {BF16: torch.bfloat16, FP32: torch.float32, FP64: torch.float64}
+
+# main paths: the float codec's in bf16, fp32 and fp64, and the API's
+P_BF16, P_FP32, P_FP64 = BF16.name, FP32.name, FP64.name
+P_A, P_B = "A:api-bf16", "B:api-raw"
+P_CF, P_CR, P_C32 = "C:api-bf16-classic", "C:api-raw-classic", "C:api-fp32-classic"
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -81,28 +120,44 @@ _WORD_DTYPE = {BF16: np.uint16, FP32: np.uint32, FP64: np.uint64}
 KERNELS = [
     ("split16_hist", "split16_hist", split16_hist_plain,
      "dietgpu_fork_torch/csrc/split16_hist.cu",
-     ("ops/pallas/float_split_fused.py:265",), (BF16,)),
+     ("ops/pallas/float_split_fused.py:265",), (P_BF16, P_A, P_CF)),
     ("encode_rows", "rans_encode_rows", encode_rows_plain,
      "dietgpu_fork_torch/csrc/rans_encode_rows.cu",
      ("ops/pallas/rans_encode_fused.py:114",
-      "ops/pallas/rans_encode_fused.py:420"), MAIN_TYPES),
+      "ops/pallas/rans_encode_fused.py:420"),
+     (P_BF16, P_FP32, P_FP64, P_A, P_B)),
     ("runs_merge", "runs_merge", runs_merge_plain,
      "dietgpu_fork_torch/csrc/runs_merge.cu",
-     ("ops/pallas/merge.py:305",), MAIN_TYPES),
+     ("ops/pallas/merge.py:305",),
+     (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32)),
     ("decode_join16", "rans_decode_join16", decode_join16_plain,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
-     ("ops/pallas/rans_decode_fused2.py:104",), (BF16,)),
+     ("ops/pallas/rans_decode_fused2.py:104",), (P_BF16, P_A)),
     ("split_wide_hist", "split_wide_hist", split_wide_hist_plain,
      "dietgpu_fork_torch/csrc/split_wide_hist.cu",
      ("ops/pallas/float_split_fused.py:291",
-      "ops/pallas/float_split_fused.py:305"), (FP32, FP64)),
+      "ops/pallas/float_split_fused.py:305"), (P_FP32, P_FP64, P_C32)),
     ("decode_rows", "rans_decode_rows", decode_rows_plain,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
-     ("ops/pallas/rans_decode_fused2.py:104",), (FP32, FP64)),
+     ("ops/pallas/rans_decode_fused2.py:104",), (P_FP32, P_FP64, P_B)),
     ("join_wide", "join_wide", join_wide_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
-      "ops/pallas/float_split_fused.py:412"), (FP32, FP64)),
+      "ops/pallas/float_split_fused.py:412"), (P_FP32, P_FP64, P_C32)),
+    ("byte_hist", "byte_hist", byte_hist_plain,
+     "dietgpu_fork_torch/csrc/byte_hist.cu",
+     ("ops/pallas/histogram_mxu.py:113", "ops/pallas/histogram_mxu.py:93"),
+     (P_B, P_CR)),
+    ("encode_blocks", "rans_encode_blocks", encode_blocks_plain,
+     "dietgpu_fork_torch/csrc/rans_encode_rows.cu",
+     ("ops/pallas/rans_encode_fused.py:305",
+      "ops/pallas/rans_encode_fused.py:114"), (P_CF, P_CR, P_C32)),
+    ("decode_blocks", "rans_decode_blocks", decode_blocks_plain,
+     "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
+     ("ops/pallas/rans_decode_fused2.py:104",), (P_CR, P_C32)),
+    ("decode_join16_blocks", "rans_decode_join16_blocks",
+     decode_join16_blocks_plain, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
+     ("ops/pallas/rans_decode_fused2.py:104",), (P_CF,)),
 ]
 
 
@@ -208,10 +263,13 @@ def record_calls(fn):
 
 
 class MainPath:
-    """One main path: 16Mi N(0,1) floats of one type, batch 1."""
+    """A main path of the float codec: 16Mi N(0,1) floats of one type,
+    batch 1, native row-stream layout."""
 
     def __init__(self, ft: FloatType, dev: torch.device):
+        self.name = ft.name
         self.ft = ft
+        self.raw_bytes = FLOAT_WORD_SIZE[ft] * MAIN_N
         self.words = float_words(0, MAIN_N, ft)
         self.d = rows_from_numpy(pack_rows([self.words], MAIN_N), dev)
         self.n = torch.tensor([MAIN_N], dtype=torch.int32, device=dev)
@@ -225,10 +283,91 @@ class MainPath:
         return float_decompress_core(out32, self.base, MAIN_N, self.ft,
                                      PROB_BITS, plain=plain)
 
-    def round_trip_ok(self, words32) -> bool:
+    def round_trip_ok(self, res) -> bool:
+        words32, success, n_out = res[:3]
         nw = self.d.shape[1]
-        return (torch.equal(words32[:, :nw], self.d)
+        return (bool(success.all()) and int(n_out[0]) == MAIN_N
+                and torch.equal(words32[:, :nw], self.d)
                 and not bool(words32[:, nw:].any()))
+
+
+class ApiFloatPath:
+    """A or C: one 16Mi N(0,1) float tensor through ``compress_data`` /
+    ``decompress_data`` with the checksum on; native=None is the default
+    layout. plain=True runs the model functions the API calls, all plain,
+    on the same packed row."""
+
+    def __init__(self, name, ft: FloatType, native, dev):
+        self.name, self.ft, self.native = name, ft, native
+        self.layout = True if native is None else native
+        self.raw_bytes = FLOAT_WORD_SIZE[ft] * MAIN_N
+        words = float_words(0, MAIN_N, ft)
+        self.x = floats_from_words(words, _TORCH_DTYPE[ft], dev)
+        self.d = rows_from_numpy(pack_rows([words], MAIN_N), dev)
+        self.n = torch.tensor([MAIN_N], dtype=torch.int32, device=dev)
+
+    def compress(self, plain=False):
+        if plain:
+            return float_compress_padded(self.d, self.n, self.ft, PROB_BITS,
+                                         True, native=self.layout, plain=True)
+        comp, comp_bytes, _ = C.compress_data(
+            True, [self.x], checksum=True, prob_bits=PROB_BITS,
+            native=self.native)
+        return comp, comp_bytes
+
+    def decompress(self, comp, plain=False):
+        """-> (decoded tensor, success and checksum agreement)."""
+        if plain:
+            w, s, _, ca, cg = float_decompress_core(
+                comp.view(torch.int32), torch.zeros_like(self.n), MAIN_N,
+                self.ft, PROB_BITS, verify_checksum=True, native=self.layout,
+                plain=True)
+            out = w.view(torch.uint8)[0, : self.raw_bytes].view(self.x.dtype)
+            return out, bool(s.all()) and torch.equal(ca, cg)
+        outs, _, success, status, _ = C.decompress_data(
+            True, comp, [MAIN_N], self.x.dtype, checksum=True,
+            prob_bits=PROB_BITS)
+        return outs[0], bool(success.all()) and status.ok
+
+    def round_trip_ok(self, res) -> bool:
+        out, ok = res
+        return ok and out.dtype == self.x.dtype and torch.equal(
+            out.view(torch.uint8), self.x.view(torch.uint8))
+
+
+class ApiRawPath:
+    """B or C: the same 32 MiB of bf16 bytes through raw ANS in the API,
+    checksum on."""
+
+    def __init__(self, name, native, dev):
+        self.name, self.native = name, native
+        self.layout = True if native is None else native
+        self.raw_bytes = 2 * MAIN_N
+        self.x = torch.from_numpy(float_words(0, MAIN_N, BF16).view(np.uint8)).to(dev)
+        self.size = torch.tensor([self.raw_bytes], dtype=torch.int32, device=dev)
+
+    def compress(self, plain=False):
+        if plain:
+            return ans_encode_padded(self.x[None], self.size, PROB_BITS, True,
+                                     native=self.layout, plain=True)
+        comp, comp_bytes, _ = C.compress_data(
+            False, [self.x], checksum=True, prob_bits=PROB_BITS,
+            native=self.native)
+        return comp, comp_bytes
+
+    def decompress(self, comp, plain=False):
+        if plain:
+            out, s, n, csum = ans_decode_padded(
+                comp, self.raw_bytes, PROB_BITS, native=self.layout, plain=True)
+            got = int(byte_hist_plain(out, n)[1][0])
+            return out[0], bool(s.all()) and got == int(csum[0])
+        outs, _, success, status, _ = C.decompress_data(
+            False, comp, [self.raw_bytes], checksum=True, prob_bits=PROB_BITS)
+        return outs[0], bool(success.all()) and status.ok
+
+    def round_trip_ok(self, res) -> bool:
+        out, ok = res
+        return ok and torch.equal(out, self.x)
 
 
 def ragged_batch(ft, count, seed, dev):
@@ -255,6 +394,79 @@ def ragged_batch(ft, count, seed, dev):
           f"ratio {int(b_cb.sum()) / raw:.6f}, exact")
 
 
+def bytes_sha256(row_u8: torch.Tensor, nbytes: int) -> str:
+    """sha256 of the first nbytes of one uint8 archive row."""
+    return hashlib.sha256(row_u8[:nbytes].cpu().numpy().tobytes()).hexdigest()
+
+
+def golden_classic(dev):
+    """The classic archives of golden_input(BF16) through the API on dev:
+    {GOLDEN_SHA256 key: (archive row, comp_bytes)}."""
+    w, _ = golden_input(BF16)
+    x = floats_from_words(w, torch.bfloat16, dev)
+    f, fb, _ = C.compress_data(True, [x], prob_bits=PROB_BITS, native=False)
+    r, rb, _ = C.compress_data(False, [x.view(torch.uint8)], checksum=True,
+                               prob_bits=PROB_BITS, native=False)
+    return {"bf16_classic": (f[0], int(fb[0])), "raw_classic": (r[0], int(rb[0]))}
+
+
+def phase_d(dev, card):
+    """D: the reference's large batch, 128 x 512Ki bf16 (128 MiB), default
+    layout, through compress_data / decompress_data."""
+    count, n = D_COUNT, D_N
+    xs = [floats_from_words(float_words(1000 + i, n, BF16), torch.bfloat16, dev)
+          for i in range(count)]
+    comp, comp_bytes, _ = C.compress_data(True, xs, prob_bits=PROB_BITS)
+    check(C.detect_native_layout(True, comp, float_type=BF16),
+          "D: the default layout on the card is native")
+    outs, sizes, success, _, _ = C.decompress_data(
+        True, comp, [n] * count, torch.bfloat16, prob_bits=PROB_BITS)
+    check(bool(success.all()) and all(int(s) == n for s in sizes),
+          "D: success and sizes")
+    check(all(torch.equal(o.view(torch.int16), x.view(torch.int16))
+              for o, x in zip(outs, xs)), "D: exact round trip")
+    c_ms = cuda_ms(lambda: C.compress_data(True, xs, prob_bits=PROB_BITS), 1, 3)
+    d_ms = cuda_ms(lambda: C.decompress_data(
+        True, comp, [n] * count, torch.bfloat16, prob_bits=PROB_BITS), 1, 3)
+    gb = 2 * n * count / 1e9
+    print(f"D batch {count} x {n} bf16: ratio "
+          f"{int(comp_bytes.sum()) / (2 * n * count):.6f}, exact; compress "
+          f"{c_ms:.3f} ms ({gb / (c_ms / 1e3):.3f} GB/s), decompress "
+          f"{d_ms:.3f} ms ({gb / (d_ms / 1e3):.3f} GB/s) (median of 3; {card})")
+
+
+def phase_e(dev):
+    """E: the split-size API on one 16Mi bf16 tensor in ragged members
+    (odd counts: seam words in the ragged concatenation)."""
+    x = floats_from_words(float_words(7, MAIN_N, BF16), torch.bfloat16, dev)
+    split = [MAIN_N // 3 + 1, 3, MAIN_N // 4, 1]
+    split.append(MAIN_N - sum(split))
+    comp, _, _ = C.compress_data_split_size(True, x, split, prob_bits=PROB_BITS)
+    out, sizes, success, _, _ = C.decompress_data_split_size(
+        True, comp, split, prob_bits=PROB_BITS)
+    check(out.device == dev and out.is_contiguous() and out.dtype == torch.bfloat16
+          and out.shape == x.shape, "E: one contiguous bf16 CUDA tensor")
+    check(torch.equal(out.view(torch.int16), x.view(torch.int16)),
+          "E: split-size round trip")
+    print(f"E split size: {len(split)} members {split}, exact, one contiguous "
+          "CUDA tensor")
+
+
+def phase_f(comp: torch.Tensor):
+    """F: a flipped byte of the raw section of A's archive must make
+    decompress_data(..., checksum=True) raise RuntimeError."""
+    bad = comp.clone()
+    bad[0, 4096] ^= 0x5A  # inside the v2 container's raw section (word 128 on)
+    try:
+        C.decompress_data(True, bad, [MAIN_N], torch.bfloat16, checksum=True,
+                          prob_bits=PROB_BITS)
+    except RuntimeError as e:
+        print(f"F checksum mismatch raised: {str(e)[:100]}")
+        return
+    raise RuntimeError("check failed: F: a corrupted archive decoded without "
+                       "a checksum error")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -271,9 +483,16 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    paths = {ft: MainPath(ft, dev) for ft in MAIN_TYPES}
+    paths = [MainPath(ft, dev) for ft in (BF16, FP32, FP64)] + [
+        ApiFloatPath(P_A, BF16, None, dev),
+        ApiRawPath(P_B, None, dev),
+        ApiFloatPath(P_CF, BF16, False, dev),
+        ApiRawPath(P_CR, False, dev),
+        ApiFloatPath(P_C32, FP32, False, dev),
+    ]
 
-    # 2. every kernel against its plain version at each main path's shapes
+    # 2. every kernel and mode against its plain version at each main
+    # path's shapes
     report = {w: {"name": w, "route": "cuda", "source": source,
                   "replaces": replaces[0], "max_abs_err": 0, "ms": 0.0,
                   "plain_ms": 0.0, "ms_by_path": {}, "plain_ms_by_path": {},
@@ -282,73 +501,86 @@ def main() -> int:
     for w, _, _, _, replaces, _ in KERNELS:
         if len(replaces) > 1:
             report[w]["also_replaces"] = list(replaces[1:])
-    for ft, mp in paths.items():
+    for mp in paths:
         calls = record_calls(lambda: mp.decompress(mp.compress()[0]))
         torch.cuda.synchronize()
         for wname, _, plain_fn, _, _, needs in KERNELS:
-            if ft not in needs:
-                check(not calls[wname], f"{wname} ran on the {ft.name} path")
+            if mp.name not in needs:
+                check(not calls[wname], f"{wname} ran on the {mp.name} path")
                 continue
-            check(len(calls[wname]) > 0, f"{wname} recorded no {ft.name} call")
+            check(len(calls[wname]) > 0, f"{wname} recorded no {mp.name} call")
             err = 0
             for args, out in calls[wname]:
                 err = max(err, max_abs_err(out, plain_fn(*args)))
             check(err == 0, f"{wname} differs from its plain version by {err} "
-                            f"on the {ft.name} path")
+                            f"on the {mp.name} path")
             kernel = getattr(K, wname)
             ms = sum(cuda_ms(lambda a=a: kernel(*a), 3, 10)
                      for a, _ in calls[wname])
             plain_ms = sum(cuda_ms(lambda a=a: plain_fn(*a), 1, 3)
                            for a, _ in calls[wname])
-            print(f"{wname} [{ft.name}]: {len(calls[wname])} call(s), kernel "
+            print(f"{wname} [{mp.name}]: {len(calls[wname])} call(s), kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms, max_abs_err {err}")
             r = report[wname]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
             r["ms"] += ms
             r["plain_ms"] += plain_ms
-            r["ms_by_path"][ft.name] = ms
-            r["plain_ms_by_path"][ft.name] = plain_ms
+            r["ms_by_path"][mp.name] = ms
+            r["plain_ms_by_path"][mp.name] = plain_ms
         del calls
 
     # 3. the main paths, each counted on its own
     archives = {}
     launches = {w: 0 for w, *_ in KERNELS}
-    for ft, mp in paths.items():
+    for mp in paths:
         torch.cuda.synchronize()
         K.reset_launches()
-        out32, comp_bytes = mp.compress()
-        words, success, n_out, _, _ = mp.decompress(out32)
+        arc, comp_bytes = mp.compress()
+        res = mp.decompress(arc)
         torch.cuda.synchronize()
         counts = dict(K.launches)
         for wname, counter, _, _, _, needs in KERNELS:
-            if ft in needs:
+            if mp.name in needs:
                 check(counts[counter] > 0,
-                      f"{wname} was not launched on the {ft.name} main path")
+                      f"{wname} was not launched on the {mp.name} main path")
             launches[wname] += counts[counter]
-            report[wname]["launches_by_path"][ft.name] = counts[counter]
-        check(bool(success.all()), f"{ft.name} main path success")
-        check(int(n_out[0]) == MAIN_N, f"{ft.name} main path decoded size")
-        check(mp.round_trip_ok(words), f"{ft.name} main path round trip")
+            report[wname]["launches_by_path"][mp.name] = counts[counter]
+        check(mp.round_trip_ok(res), f"{mp.name} main path round trip")
         cb = int(comp_bytes[0])
-        print(f"{ft.name} main path: comp_bytes {cb}, ratio "
-              f"{cb / (FLOAT_WORD_SIZE[ft] * MAIN_N):.6f}, launches {counts}")
-        p_out32, p_comp_bytes = mp.compress(plain=True)
-        check(torch.equal(p_out32, out32)
-              and torch.equal(p_comp_bytes, comp_bytes),
-              f"{ft.name} kernel archive equals the all-plain archive")
-        for arc, plain in ((out32, True), (p_out32, False)):
-            w2, s2, _, _, _ = mp.decompress(arc, plain=plain)
-            check(bool(s2.all()) and mp.round_trip_ok(w2),
-                  f"{ft.name} cross-decode with plain={plain}")
-        del p_out32, w2
-        archives[ft] = out32
-        print(f"{ft.name} main path: round trip exact, archive == plain "
+        print(f"{mp.name} main path: comp_bytes {cb}, ratio "
+              f"{cb / mp.raw_bytes:.6f}, launches {counts}")
+        p_arc, p_comp_bytes = mp.compress(plain=True)
+        check(torch.equal(p_arc, arc) and torch.equal(p_comp_bytes, comp_bytes),
+              f"{mp.name} kernel archive equals the all-plain archive")
+        for a, plain in ((arc, True), (p_arc, False)):
+            check(mp.round_trip_ok(mp.decompress(a, plain=plain)),
+                  f"{mp.name} cross-decode with plain={plain}")
+        del p_arc, res
+        archives[mp.name] = arc
+        print(f"{mp.name} main path: round trip exact, archive == plain "
               "archive, cross-decoding both ways")
     for w in launches:
         report[w]["launches"] = launches[w]
+    # A: the API's archive is float_compress_core's, in the native layout
+    a_path = next(p for p in paths if p.name == P_A)
+    core32, core_cb = float_compress_core(a_path.d, a_path.n, BF16, PROB_BITS,
+                                          use_checksum=True)
+    a_arc = archives[P_A]
+    nc = 4 * core32.shape[1]
+    check(torch.equal(a_arc[:, :nc], core32.view(torch.uint8))
+          and not bool(a_arc[:, nc:].any()),
+          "A: the API archive equals float_compress_core's")
+    check(C.detect_native_layout(True, a_arc, float_type=BF16),
+          "A: the default layout on the card is native")
+    for name in (P_CF, P_CR, P_C32):
+        comp = archives[name]
+        check(not C.detect_native_layout(name != P_CR, comp),
+              f"{name}: the archive is classic")
+    del core32
 
     # 4. link to the reference without JAX
     base0 = torch.zeros(1, dtype=torch.int64, device=dev)
-    for ft in MAIN_TYPES:
+    for ft in (BF16, FP32, FP64):
         g_rows = rows_from_numpy(golden_input(ft)[1], dev)
         g_out, g_cb = float_compress_core(
             g_rows, torch.tensor([GOLDEN_N], dtype=torch.int32, device=dev),
@@ -363,26 +595,33 @@ def main() -> int:
               f"{ft.name} golden round trip")
         print(f"{ft.name} golden v2 archive: {int(g_cb[0])} bytes, "
               "sha256 matches")
+    for key, (row, nbytes) in golden_classic(dev).items():
+        digest = bytes_sha256(row, nbytes)
+        check(digest == GOLDEN_SHA256[key], f"{key} golden archive sha256 {digest}")
+        print(f"{key} golden archive: {nbytes} bytes, sha256 matches")
 
     # 5. ragged batches: per-member tables inside K2, K4 and K6, partial
-    # groups of floats in K5 and K7
+    # groups of floats in K5 and K7; then D, E and F
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)
     ragged_batch(FP64, 64, 300, dev)
+    phase_d(dev, card)
+    phase_e(dev)
+    phase_f(a_arc)
 
     # 6. times at the main paths
-    for ft, mp in paths.items():
-        gb = FLOAT_WORD_SIZE[ft] * MAIN_N / 1e9
-        out32 = archives[ft]
+    for mp in paths:
+        gb = mp.raw_bytes / 1e9
+        arc = archives[mp.name]
         t = {
             "compress": cuda_ms(mp.compress, 3, 10),
-            "decompress": cuda_ms(lambda: mp.decompress(out32), 3, 10),
+            "decompress": cuda_ms(lambda: mp.decompress(arc), 3, 10),
             "compress_plain": cuda_ms(lambda: mp.compress(True), 1, 3),
-            "decompress_plain": cuda_ms(lambda: mp.decompress(out32, True), 1, 3),
+            "decompress_plain": cuda_ms(lambda: mp.decompress(arc, True), 1, 3),
         }
         for k, ms in t.items():
-            print(f"{ft.name} {k}: {ms:.3f} ms, {gb / (ms / 1e3):.3f} GB/s "
-                  f"({MAIN_N >> 20}Mi {ft.name}, median; {card})")
+            print(f"{mp.name} {k}: {ms:.3f} ms, {gb / (ms / 1e3):.3f} GB/s "
+                  f"({mp.raw_bytes >> 20} MiB, median; {card})")
 
     print(card_line())
     print(json.dumps({"kernels": list(report.values())}))

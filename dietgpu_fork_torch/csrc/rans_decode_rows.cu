@@ -1,4 +1,5 @@
-// K4 and K6: row-stream (0xDB0D) rANS decode, one walk with two epilogues.
+// K4 and K6: rANS decode, one walk with two epilogues, over the row-stream
+// (0xDB0D) layout or the classic (0xD00D) one.
 //
 // K6 (dgt_rans_decode_rows) writes the decoded bytes. It replaces the JAX
 // package's ops/pallas/rans_decode_fused2.py::_decode_kernel2 in mode
@@ -25,6 +26,15 @@
 // the symbol byte there; K4 writes raw | sym << 8, rotated right by 1 within
 // 16 bits for bf16. Both write 0 at positions >= the block's decoded count.
 //
+// Classic layout (dgt_rans_decode_blocks, dgt_rans_decode_join16_blocks):
+// replaces _decode_kernel2 with row_stream=False, in mode JOIN_NONE (call at
+// rans_decode_fused2.py:517) and JOIN_F16/BF16 (call at :620). Contracts:
+// ops/rans_decode.py::decode_blocks_plain and decode_join16_blocks_plain,
+// the JAX package's decode_blocks. Each warp reads its own block's stream,
+// staged at [B, nb, sw], with its own cursor: the reverse order is a suffix
+// of the warp's ballot alone, with no shared counts and no barrier a step.
+// The walk and both epilogues are the row layout's.
+//
 // Bound on the card: the serial chain of 128 dependent steps (a shared LUT
 // read, the state update, one barrier) per row; occupancy comes from the
 // number of rows. The decode LUT ((slot - cdf) << 20 | pdf << 8 | sym,
@@ -45,15 +55,16 @@ constexpr int kBlockBytes = 4096;
 constexpr int kMaxLut = 1 << 11;
 
 // kJoin16: K4's epilogue (raw bytes in, u16 floats out); else K6's (u8 out).
-template <bool kJoin16>
+// kClassic: streams u32[B, nb, sw], one per block; else u32[B, nr, sw].
+template <bool kJoin16, bool kClassic>
 __global__ void __launch_bounds__(kThreads)
-rans_decode_rows_kernel(const uint32_t* __restrict__ streams, int64_t sw,
-                        const int32_t* __restrict__ comp_w,
-                        const int32_t* __restrict__ uncomp_w,
-                        const uint32_t* __restrict__ states,
-                        const uint32_t* __restrict__ lut, int prob_bits,
-                        const uint8_t* __restrict__ raw, int64_t nb,
-                        int64_t nr, int bf16, void* __restrict__ out) {
+rans_decode_kernel(const uint32_t* __restrict__ streams, int64_t sw,
+                   const int32_t* __restrict__ comp_w,
+                   const int32_t* __restrict__ uncomp_w,
+                   const uint32_t* __restrict__ states,
+                   const uint32_t* __restrict__ lut, int prob_bits,
+                   const uint8_t* __restrict__ raw, int64_t nb, int64_t nr,
+                   int bf16, void* __restrict__ out) {
   __shared__ uint32_t sh_lut[kMaxLut];
   __shared__ int sh_cw[kRowBlocks];
   __shared__ int sh_cnt[2][kRowBlocks];
@@ -73,14 +84,18 @@ rans_decode_rows_kernel(const uint32_t* __restrict__ streams, int64_t sw,
   if (lane == 0) sh_cw[blk] = live ? comp_w[blk_idx] : 0;
   __syncthreads();
 
-  int ptr = 0;  // one past the row's last unread u16 word
-  for (int w = 0; w < kRowBlocks; ++w) ptr += sh_cw[w];
+  int ptr = 0;  // one past the stream's last unread u16 word
+  if constexpr (kClassic) {
+    ptr = sh_cw[blk];
+  } else {
+    for (int w = 0; w < kRowBlocks; ++w) ptr += sh_cw[w];
+  }
   const int nsteps = (uw + kWarp - 1) / kWarp;
   const int tail = uw > 0 ? ((uw - 1) % kWarp) + 1 : kWarp;
   const uint32_t smask = (uint32_t)nslots - 1u;
   uint32_t state = live ? states[blk_idx * kWarp + lane] : 0u;
   const uint8_t* rawb = kJoin16 ? raw + blk_idx * kBlockBytes : nullptr;
-  const uint32_t* srow = streams + (b * nr + row) * sw;
+  const uint32_t* srow = streams + (kClassic ? blk_idx : b * nr + row) * sw;
   const unsigned at_or_above = ~((1u << lane) - 1u);
 
   for (int i = 0; i < kSteps; ++i) {
@@ -108,13 +123,17 @@ rans_decode_rows_kernel(const uint32_t* __restrict__ streams, int64_t sw,
 
     const bool read = valid && state < (1u << 15);
     const unsigned ballot = __ballot_sync(0xFFFFFFFFu, read);
-    if (lane == 0) sh_cnt[i & 1][blk] = __popc(ballot);
-    __syncthreads();
     int higher = 0, total = 0;
-    for (int w = 0; w < kRowBlocks; ++w) {
-      const int c = sh_cnt[i & 1][w];
-      total += c;
-      if (w > blk) higher += c;
+    if constexpr (kClassic) {
+      total = __popc(ballot);
+    } else {
+      if (lane == 0) sh_cnt[i & 1][blk] = __popc(ballot);
+      __syncthreads();
+      for (int w = 0; w < kRowBlocks; ++w) {
+        const int c = sh_cnt[i & 1][w];
+        total += c;
+        if (w > blk) higher += c;
+      }
     }
     if (read) {
       const int idx16 = ptr - (higher + __popc(ballot & at_or_above));
@@ -127,14 +146,15 @@ rans_decode_rows_kernel(const uint32_t* __restrict__ streams, int64_t sw,
   }
 }
 
-template <bool kJoin16>
+template <bool kJoin16, bool kClassic>
 int launch(const void* streams, long long sw, const void* comp_w,
            const void* uncomp_w, const void* states, const void* lut,
            int prob_bits, const void* raw, long long batch, long long nb,
            int bf16, void* out, void* stream) {
   const long long nr = (nb + kRowBlocks - 1) / kRowBlocks;
   dim3 grid((unsigned)nr, (unsigned)batch);
-  rans_decode_rows_kernel<kJoin16><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  rans_decode_kernel<kJoin16, kClassic>
+      <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)streams, sw, (const int32_t*)comp_w,
       (const int32_t*)uncomp_w, (const uint32_t*)states,
       (const uint32_t*)lut, prob_bits, (const uint8_t*)raw, nb, nr, bf16, out);
@@ -152,8 +172,8 @@ extern "C" int dgt_rans_decode_rows(const void* streams, long long sw,
                                     const void* states, const void* lut,
                                     int prob_bits, long long batch,
                                     long long nb, void* out, void* stream) {
-  return launch<false>(streams, sw, comp_w, uncomp_w, states, lut, prob_bits,
-                       nullptr, batch, nb, 0, out, stream);
+  return launch<false, false>(streams, sw, comp_w, uncomp_w, states, lut,
+                              prob_bits, nullptr, batch, nb, 0, out, stream);
 }
 
 // As dgt_rans_decode_rows, plus raw: u8[B, nb, 4096] block-major raw bytes.
@@ -164,6 +184,26 @@ extern "C" int dgt_rans_decode_join16(const void* streams, long long sw,
                                       int prob_bits, const void* raw,
                                       long long batch, long long nb, int bf16,
                                       void* out, void* stream) {
-  return launch<true>(streams, sw, comp_w, uncomp_w, states, lut, prob_bits,
-                      raw, batch, nb, bf16, out, stream);
+  return launch<true, false>(streams, sw, comp_w, uncomp_w, states, lut,
+                             prob_bits, raw, batch, nb, bf16, out, stream);
+}
+
+// As dgt_rans_decode_rows, in the classic layout: streams u32[B, nb, sw].
+extern "C" int dgt_rans_decode_blocks(const void* streams, long long sw,
+                                      const void* comp_w, const void* uncomp_w,
+                                      const void* states, const void* lut,
+                                      int prob_bits, long long batch,
+                                      long long nb, void* out, void* stream) {
+  return launch<false, true>(streams, sw, comp_w, uncomp_w, states, lut,
+                             prob_bits, nullptr, batch, nb, 0, out, stream);
+}
+
+// As dgt_rans_decode_join16, in the classic layout: streams u32[B, nb, sw].
+extern "C" int dgt_rans_decode_join16_blocks(
+    const void* streams, long long sw, const void* comp_w,
+    const void* uncomp_w, const void* states, const void* lut, int prob_bits,
+    const void* raw, long long batch, long long nb, int bf16, void* out,
+    void* stream) {
+  return launch<true, true>(streams, sw, comp_w, uncomp_w, states, lut,
+                            prob_bits, raw, batch, nb, bf16, out, stream);
 }

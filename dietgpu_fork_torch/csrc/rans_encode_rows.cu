@@ -1,5 +1,7 @@
-// K2: interleaved 32-state rANS encode of the row-stream (0xDB0D) layout,
-// with the emitted words compacted into row-stream order inside the walk.
+// K2: interleaved 32-state rANS encode, with the emitted words compacted
+// into the archive's stream order inside the walk: the row-stream (0xDB0D)
+// layout (dgt_rans_encode_rows) or the classic (0xD00D) one
+// (dgt_rans_encode_blocks), a template parameter of one kernel.
 //
 // Replaces two Pallas kernels of the JAX package's ops/pallas/rans_encode_fused.py:
 // _encode_kernel (phase A: the walk, emitting a word and a mask bit per step
@@ -18,10 +20,19 @@
 // Lanes past the member's size neither emit nor update their state. The
 // division state / pdf is the reference's magic multiply with __umulhi.
 //
+// Classic layout: replaces the classic (native=False) mode of _encode_kernel
+// and the Pallas _compact_kernel (rans_encode_fused.py:305), which orders the
+// emissions into one stream per 4 KiB block. Contract:
+// ops/rans_encode.py::encode_blocks_plain, the JAX package's encode_blocks.
+// Each block's stream is step-major, lanes ascending, so a writing lane's
+// slot is (words this block emitted before this step)
+// + popc(ballot & lanes below me): no cross-warp count and no barrier a step.
+//
 // Bound on the card: the serial chain of 128 dependent steps, each with a
-// CTA barrier (the per-step counts double-buffer, so one barrier a step
-// suffices). Occupancy comes from the number of rows (1024 at 16Mi floats).
-// The coding tables (2 x 256 u32) sit in shared memory.
+// CTA barrier in the row layout (the per-step counts double-buffer, so one
+// barrier a step suffices) and none in the classic one. Occupancy comes
+// from the number of rows (1024 at 16Mi floats). The coding tables
+// (2 x 256 u32) sit in shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,17 +44,20 @@ constexpr int kRowBlocks = 4;
 constexpr int kThreads = kWarp * kRowBlocks;
 constexpr int kSteps = 128;
 constexpr int kBlockBytes = 4096;
-constexpr int kRowWords16 = 10240;  // 4 blocks x 2560 u16 worst case
+constexpr int kBlockWords16 = 2560;  // one block's u16 worst case
+constexpr int kRowWords16 = 4 * kBlockWords16;
 
+// kClassic: one stream per block, streams u16[B, nb, 2560]; else one per
+// row of 4 blocks, streams u16[B, nr, 10240].
+template <bool kClassic>
 __global__ void __launch_bounds__(kThreads)
-rans_encode_rows_kernel(const uint8_t* __restrict__ sym,
-                        const int32_t* __restrict__ sizes,
-                        const uint32_t* __restrict__ packed,
-                        const uint32_t* __restrict__ magic, int64_t nb,
-                        int64_t nr, int prob_bits,
-                        uint32_t* __restrict__ states_out,
-                        uint16_t* __restrict__ streams,
-                        int32_t* __restrict__ num_words) {
+rans_encode_kernel(const uint8_t* __restrict__ sym,
+                   const int32_t* __restrict__ sizes,
+                   const uint32_t* __restrict__ packed,
+                   const uint32_t* __restrict__ magic, int64_t nb, int64_t nr,
+                   int prob_bits, uint32_t* __restrict__ states_out,
+                   uint16_t* __restrict__ streams,
+                   int32_t* __restrict__ num_words) {
   __shared__ uint32_t sh_packed[256];
   __shared__ uint32_t sh_magic[256];
   __shared__ int sh_cnt[2][kRowBlocks];
@@ -63,7 +77,9 @@ rans_encode_rows_kernel(const uint8_t* __restrict__ sym,
   const int64_t size = sizes[b];
   const int64_t blk_base = gb * kBlockBytes;
   const uint8_t* src = sym + (b * nb + (live ? gb : 0)) * kBlockBytes;
-  uint16_t* out = streams + (b * nr + row) * kRowWords16;
+  uint16_t* out = kClassic
+      ? streams + (b * nb + (live ? gb : 0)) * kBlockWords16
+      : streams + (b * nr + row) * kRowWords16;
   const uint32_t check_shift = 31 - prob_bits;
   const unsigned below = (1u << lane) - 1u;
 
@@ -84,17 +100,24 @@ rans_encode_rows_kernel(const uint8_t* __restrict__ sym,
     const bool write = valid && state >= (pdf << check_shift);
     const unsigned ballot = __ballot_sync(0xFFFFFFFFu, write);
     const int cnt = __popc(ballot);
-    if (lane == 0) sh_cnt[s & 1][blk] = cnt;
-    __syncthreads();
-    int lower = 0, total = 0;
-    for (int w = 0; w < kRowBlocks; ++w) {
-      const int c = sh_cnt[s & 1][w];
-      total += c;
-      if (w < blk) lower += c;
+    int slot = 0, total = 0;
+    if constexpr (kClassic) {
+      slot = blk_words;
+    } else {
+      if (lane == 0) sh_cnt[s & 1][blk] = cnt;
+      __syncthreads();
+      for (int w = 0; w < kRowBlocks; ++w) {
+        const int c = sh_cnt[s & 1][w];
+        total += c;
+        if (w < blk) slot += c;
+      }
+      slot += row_count;
     }
     if (write) {
-      const int slot = row_count + lower + __popc(ballot & below);
-      if (slot < kRowWords16) out[slot] = (uint16_t)(state & 0xFFFFu);
+      slot += __popc(ballot & below);
+      if (slot < (kClassic ? kBlockWords16 : kRowWords16)) {
+        out[slot] = (uint16_t)(state & 0xFFFFu);
+      }
       state >>= 16;
     }
     if (valid) {
@@ -110,9 +133,28 @@ rans_encode_rows_kernel(const uint8_t* __restrict__ sym,
     states_out[(b * nb + gb) * kWarp + lane] = state;
     if (lane == 0) num_words[b * nb + gb] = blk_words;
   }
-  // the merge copies (row_words + 1) >> 1 u32 words: zero the odd trailing
-  // half and the rest of the row
-  for (int i = row_count + tid; i < kRowWords16; i += kThreads) out[i] = 0;
+  // the merge copies (words + 1) >> 1 u32 words: zero the odd trailing
+  // half and the rest of the stream
+  if constexpr (kClassic) {
+    if (live) {
+      for (int i = blk_words + lane; i < kBlockWords16; i += kWarp) out[i] = 0;
+    }
+  } else {
+    for (int i = row_count + tid; i < kRowWords16; i += kThreads) out[i] = 0;
+  }
+}
+
+template <bool kClassic>
+int launch(const void* sym, const void* sizes, const void* packed,
+           const void* magic, long long batch, long long nb, int prob_bits,
+           void* states_out, void* streams, void* num_words, void* stream) {
+  const long long nr = (nb + kRowBlocks - 1) / kRowBlocks;
+  dim3 grid((unsigned)nr, (unsigned)batch);
+  rans_encode_kernel<kClassic><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)sym, (const int32_t*)sizes, (const uint32_t*)packed,
+      (const uint32_t*)magic, nb, nr, prob_bits, (uint32_t*)states_out,
+      (uint16_t*)streams, (int32_t*)num_words);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -127,11 +169,17 @@ extern "C" int dgt_rans_encode_rows(const void* sym, const void* sizes,
                                     int prob_bits, void* states_out,
                                     void* streams, void* num_words,
                                     void* stream) {
-  const long long nr = (nb + kRowBlocks - 1) / kRowBlocks;
-  dim3 grid((unsigned)nr, (unsigned)batch);
-  rans_encode_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)sym, (const int32_t*)sizes, (const uint32_t*)packed,
-      (const uint32_t*)magic, nb, nr, prob_bits, (uint32_t*)states_out,
-      (uint16_t*)streams, (int32_t*)num_words);
-  return (int)cudaGetLastError();
+  return launch<false>(sym, sizes, packed, magic, batch, nb, prob_bits,
+                       states_out, streams, num_words, stream);
+}
+
+// As dgt_rans_encode_rows, in the classic layout: streams u16[B, nb, 2560].
+extern "C" int dgt_rans_encode_blocks(const void* sym, const void* sizes,
+                                      const void* packed, const void* magic,
+                                      long long batch, long long nb,
+                                      int prob_bits, void* states_out,
+                                      void* streams, void* num_words,
+                                      void* stream) {
+  return launch<true>(sym, sizes, packed, magic, batch, nb, prob_bits,
+                      states_out, streams, num_words, stream);
 }

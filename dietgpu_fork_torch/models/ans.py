@@ -1,13 +1,17 @@
-"""Row-stream (0xDB0D) ANS archives: assembly runs on compress, header
-parse, validation and staging on decompress.
+"""ANS archives in both layouts: assembly runs on compress, header parse,
+validation and staging on decompress, and the byte-row entry points.
 
-A port of the native branch of the JAX package's ``models/ans.py``. An ANS
-archive is [header 8 | pdf 128 | states 32*nb | blockWords 2*round2(nb) |
-row streams], in u32 words. Each row of 4 blocks has one stream, 16 B
-aligned, and blockWords.y holds the row's start, repeated across its 4
-blocks. The encoder returns the archive as runs for the caller's merge; the
-decoder validates every archive-supplied count before it reaches a kernel,
-folding a failure into the member's ``success`` (never a trap).
+A port of the JAX package's ``models/ans.py``. An ANS archive is
+[header 8 | pdf 128 | states 32*nb | blockWords 2*round2(nb) | streams], in
+u32 words. The classic layout (magic 0xD00D, the CUDA reference's) has one
+stream per block, each 16 B aligned, and blockWords.y holds the block's
+start. The row-stream layout (0xDB0D) has one stream per row of 4 blocks,
+16 B aligned per row, and blockWords.y holds the row's start, repeated
+across its 4 blocks. Header word 4 holds prob_bits | use_checksum << 4, and
+word 5 the XOR checksum of the input bytes when it is used. The encoder
+returns the archive as runs for the caller's merge; the decoder validates
+every archive-supplied count before it reaches a kernel, folding a failure
+into the member's ``success`` (never a trap).
 
 Metadata arithmetic is int64 on the inputs' device; u32 values are int64
 carriers (``ops.bitops``).
@@ -21,32 +25,48 @@ import torch
 import torch.nn.functional as F
 
 from ..core.constants import (
+    ANS_MAGIC,
     ANS_MAGIC_NATIVE,
     ANS_VERSION,
     BLOCK_SIZE,
+    DEFAULT_PROB_BITS,
     MAX_BLOCK_WORDS32,
     MAX_ROW_WORDS32,
     WARP_SIZE,
+    max_compressed_size,
 )
 from ..ops.bitops import from_u32, to_i32, to_u32
+from ..ops.checksum import checksum_packed
+from ..ops.histogram import byte_hist, byte_hist_plain
 from ..ops.merge import runs_merge, runs_merge_plain
 from ..ops.rans_decode import (
+    decode_blocks,
+    decode_blocks_plain,
     decode_join16,
+    decode_join16_blocks,
+    decode_join16_blocks_plain,
     decode_join16_plain,
     decode_rows,
     decode_rows_plain,
 )
-from ..ops.rans_encode import encode_rows, encode_rows_plain
+from ..ops.rans_encode import (
+    encode_blocks,
+    encode_blocks_plain,
+    encode_rows,
+    encode_rows_plain,
+)
 from ..ops.table import (
     build_decode_table_batched,
     normalize_probs_batched,
     pack_encode_table,
 )
 
+ANS_MAGIC_VERSION = (ANS_MAGIC << 16) | ANS_VERSION
 ANS_MAGIC_NATIVE_VERSION = (ANS_MAGIC_NATIVE << 16) | ANS_VERSION
 META_WORDS = 136  # header (8) + packed pdf table (128)
-# staged row stream width on decode: the worst-case row plus slack
+# staged stream widths on decode: the worst-case row or block plus slack
 STAGE_ROW_WORDS32 = MAX_ROW_WORDS32 + 8
+STAGE_BLOCK_WORDS32 = MAX_BLOCK_WORDS32 + 8
 
 # source indices of EncodedRuns.src_ref
 SRC_META, SRC_PAIRS, SRC_STREAMS = 0, 1, 2
@@ -57,11 +77,13 @@ class EncodedRuns(NamedTuple):
 
     meta: torch.Tensor  # int32[B, 136 + 32*NB]: header, pdf, states
     pairs: torch.Tensor  # int32[B, 2*NB]: blockWords (x, y)
-    streams: torch.Tensor  # int32[B, NR, MAX_ROW_WORDS32]
-    dst: torch.Tensor  # int64[B, 2 + NR], relative to the archive start
-    src_ref: torch.Tensor  # int32[B, 2 + NR]: SRC_META, SRC_PAIRS, SRC_STREAMS
-    src_off: torch.Tensor  # int64[B, 2 + NR], into the flattened source
-    lens: torch.Tensor  # int64[B, 2 + NR]
+    # int32[B, NSEG, MAXW]: row streams (NSEG = NR, MAXW = MAX_ROW_WORDS32)
+    # or block streams (NB, MAX_BLOCK_WORDS32)
+    streams: torch.Tensor
+    dst: torch.Tensor  # int64[B, 2 + NSEG], relative to the archive start
+    src_ref: torch.Tensor  # int32[B, 2 + NSEG]: SRC_META, SRC_PAIRS, SRC_STREAMS
+    src_off: torch.Tensor  # int64[B, 2 + NSEG], into the flattened source
+    lens: torch.Tensor  # int64[B, 2 + NSEG]
     comp_bytes: torch.Tensor  # int64[B]
 
 
@@ -79,48 +101,85 @@ def _layout(nb: torch.Tensor):
 def ans_encode_sections(
     x32: torch.Tensor,
     sizes: torch.Tensor,
-    hist: torch.Tensor,
-    prob_bits: int,
-    s_bytes: int,
+    prob_bits: int = DEFAULT_PROB_BITS,
+    use_checksum: bool = False,
+    hist: Optional[torch.Tensor] = None,
+    s_bytes: Optional[int] = None,
+    hist_totals: Optional[torch.Tensor] = None,
+    native: bool = True,
     plain: bool = False,
 ) -> EncodedRuns:
-    """Encode byte rows into row-stream ANS archives, returned as runs.
+    """Encode byte rows into ANS archives, returned as runs.
 
-    x32: int32[B, W] packed bytes (W*4 >= s_bytes); sizes: int32[B] byte
-    counts; hist: int32[B, 256] byte histograms of the first sizes[b]
-    bytes; s_bytes: the rows' byte capacity, which fixes NB. plain=True runs
-    the encoder's plain version wherever the tensors lie.
+    x32: int32[B, W] packed bytes; sizes: int32[B] byte counts; s_bytes:
+    the rows' byte capacity, which fixes NB (default 4W). hist: optional
+    caller-supplied int32[B, 256] byte histograms of the first sizes[b]
+    bytes, which skip the statistics pass (GpuANSCodec.h:82-84); they are
+    normalised against sizes, or against hist_totals where given. Without
+    hist, one K8 launch counts the bytes and folds their checksum.
+    use_checksum writes the XOR of the input bytes into header word 5.
+    native picks the row-stream layout, else the classic one. plain=True
+    runs every kernel's plain version wherever the tensors lie.
     """
     dev = x32.device
     B, W = x32.shape
-    NB = max(1, _ceil_div(s_bytes, BLOCK_SIZE))
+    S = 4 * W if s_bytes is None else s_bytes
+    NB = max(1, _ceil_div(S, BLOCK_SIZE))
     NR = _ceil_div(NB, 4)
     sizes64 = sizes.to(torch.int64)
 
-    pdf, cdf, magic, shift = normalize_probs_batched(hist, sizes64, prob_bits)
-    packed = pack_encode_table(pdf, cdf, shift)
+    # whole blocks: 16 B aligned rows for K8 and K2
     xp = F.pad(x32, (0, NB * (BLOCK_SIZE // 4) - W))
-    encode = encode_rows_plain if plain else encode_rows
+    csum = torch.zeros_like(sizes64)
+    if hist is None:
+        rows = xp.view(torch.uint8)
+        hist, csum_k = (byte_hist_plain if plain else byte_hist)(rows, sizes64)
+        if use_checksum:
+            csum = csum_k.to(torch.int64)
+    elif use_checksum:
+        csum = checksum_packed(to_u32(x32), sizes64)
+    totals = sizes64 if hist_totals is None else hist_totals.to(torch.int64)
+    pdf, cdf, magic, shift = normalize_probs_batched(hist, totals, prob_bits)
+    packed = pack_encode_table(pdf, cdf, shift)
+    if native:
+        encode = encode_rows_plain if plain else encode_rows
+    else:
+        encode = encode_blocks_plain if plain else encode_blocks
     states, streams, num_words = encode(
         xp, sizes.to(torch.int32), from_u32(packed), from_u32(magic), prob_bits
     )
 
     nb = _ceil_div(sizes64, BLOCK_SIZE)
-    # 16 B aligned exclusive prefix per row of 4 blocks
-    nw4 = F.pad(num_words.to(torch.int64), (0, 4 * NR - NB)).reshape(B, NR, 4)
-    row_words = nw4.sum(dim=2)
-    aligned = (row_words + 7) // 8 * 8
-    incl = torch.cumsum(aligned, dim=1)
-    row_prefix = incl - aligned
-    prefix = row_prefix.repeat_interleave(4, dim=1)[:, :NB]
+    blk = torch.arange(NB, dtype=torch.int64, device=dev)[None, :]
+    live = blk < nb[:, None]
+    if native:
+        # 16 B aligned exclusive prefix per row of 4 blocks; blockWords.y
+        # holds the row start, repeated across the row's blocks
+        nw4 = F.pad(num_words.to(torch.int64), (0, 4 * NR - NB)).reshape(B, NR, 4)
+        seg_words = nw4.sum(dim=2)
+        aligned = (seg_words + 7) // 8 * 8
+        incl = torch.cumsum(aligned, dim=1)
+        seg_prefix = incl - aligned
+        prefix = seg_prefix.repeat_interleave(4, dim=1)[:, :NB]
+        seg = torch.arange(NR, dtype=torch.int64, device=dev)[None, :]
+        seg_live = seg < _ceil_div(nb, 4)[:, None]
+        NSEG, MAXW = NR, MAX_ROW_WORDS32
+    else:
+        # 16 B aligned exclusive prefix of the per-block word counts
+        seg_words = num_words.to(torch.int64)
+        aligned = (seg_words + 7) // 8 * 8
+        incl = torch.cumsum(aligned, dim=1)
+        seg_prefix = prefix = incl - aligned
+        seg, seg_live = blk, live
+        NSEG, MAXW = NB, MAX_BLOCK_WORDS32
     total_words = incl[:, -1]
 
-    blk = torch.arange(NB, dtype=torch.int64, device=dev)[None, :]
     uncomp_w = (sizes64[:, None] - blk * BLOCK_SIZE).clamp(0, BLOCK_SIZE)
     zeros = torch.zeros_like(sizes64)
     hdr8 = torch.stack(
-        [zeros + ANS_MAGIC_NATIVE_VERSION, nb, sizes64, total_words,
-         zeros + prob_bits, zeros, zeros, zeros],
+        [zeros + (ANS_MAGIC_NATIVE_VERSION if native else ANS_MAGIC_VERSION),
+         nb, sizes64, total_words,
+         zeros + (prob_bits | (int(use_checksum) << 4)), csum, zeros, zeros],
         dim=1,
     )
     bw_off, data_off = _layout(nb)
@@ -131,33 +190,101 @@ def ans_encode_sections(
         [from_u32(hdr8), from_u32(probs16), states.reshape(B, NB * WARP_SIZE)],
         dim=1,
     )
-    live = blk < nb[:, None]
     bw_x = (uncomp_w << 16) | num_words.to(torch.int64)
     pairs = from_u32(torch.stack(
         [torch.where(live, bw_x, 0), torch.where(live, prefix, 0)], dim=2
     ).reshape(B, 2 * NB))
 
     b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
-    row = torch.arange(NR, dtype=torch.int64, device=dev)[None, :]
-    row_live = row < _ceil_div(nb, 4)[:, None]
     dst = torch.cat(
         [torch.zeros_like(b_ar), bw_off[:, None],
-         data_off[:, None] + (row_prefix >> 1)], dim=1)
+         data_off[:, None] + (seg_prefix >> 1)], dim=1)
     src_ref = torch.cat(
         [torch.full((B, 1), SRC_META), torch.full((B, 1), SRC_PAIRS),
-         torch.full((B, NR), SRC_STREAMS)], dim=1).to(torch.int32).to(dev)
+         torch.full((B, NSEG), SRC_STREAMS)], dim=1).to(torch.int32).to(dev)
     src_off = torch.cat(
         [b_ar * meta.shape[1], b_ar * pairs.shape[1],
-         (b_ar * NR + row) * MAX_ROW_WORDS32], dim=1)
+         (b_ar * NSEG + seg) * MAXW], dim=1)
     lens = torch.cat(
         [(META_WORDS + 32 * nb)[:, None], (2 * nb)[:, None],
-         torch.where(row_live, (row_words + 1) >> 1, 0)], dim=1)
+         torch.where(seg_live, (seg_words + 1) >> 1, 0)], dim=1)
     return EncodedRuns(meta, pairs, streams, dst, src_ref, src_off, lens,
                        comp_bytes)
 
 
+def _tight_bytes(S: int) -> int:
+    """Bytes of an ANS archive row for S input bytes: metadata plus fully
+    incompressible streams for NB blocks, at most the reference's
+    ``max_compressed_size`` (the JAX package's ``models/ans.py:278-283``)."""
+    NB = max(1, _ceil_div(S, BLOCK_SIZE))
+    need = (4 * META_WORDS + 128 * NB + 8 * ((NB + 1) // 2 * 2)
+            + 4 * MAX_BLOCK_WORDS32 * NB)
+    return min(max_compressed_size(S), _ceil_div(need, 16) * 16)
+
+
+def ans_encode_core(
+    x32: torch.Tensor,
+    sizes: torch.Tensor,
+    prob_bits: int = DEFAULT_PROB_BITS,
+    use_checksum: bool = False,
+    hist: Optional[torch.Tensor] = None,
+    s_bytes: Optional[int] = None,
+    hist_totals: Optional[torch.Tensor] = None,
+    native: bool = True,
+    plain: bool = False,
+):
+    """Compress byte rows to ANS archives in u32 words; arguments as
+    ``ans_encode_sections``. Returns (out32 int32[B, tight / 4], zero past
+    each archive; comp_bytes int64[B])."""
+    B, W = x32.shape
+    S = 4 * W if s_bytes is None else s_bytes
+    seg = ans_encode_sections(x32, sizes, prob_bits, use_checksum, hist, S,
+                              hist_totals, native, plain)
+    out_words = _tight_bytes(S) // 4
+    row0 = torch.arange(B, dtype=torch.int64, device=x32.device)[:, None] * out_words
+    merge = runs_merge_plain if plain else runs_merge
+    out = merge(
+        [seg.meta.reshape(-1), seg.pairs.reshape(-1), seg.streams.reshape(-1)],
+        (seg.dst + row0).reshape(-1), seg.src_ref.reshape(-1),
+        seg.src_off.reshape(-1), seg.lens.reshape(-1), B * out_words,
+    )
+    return out.reshape(B, out_words), seg.comp_bytes
+
+
+def ans_encode_padded(
+    x_u8: torch.Tensor,
+    sizes: torch.Tensor,
+    prob_bits: int = DEFAULT_PROB_BITS,
+    use_checksum: bool = False,
+    hist: Optional[torch.Tensor] = None,
+    out_bytes: Optional[int] = None,
+    hist_totals: Optional[torch.Tensor] = None,
+    native: bool = True,
+    plain: bool = False,
+):
+    """Byte-row wrapper around ``ans_encode_core`` with the reference's
+    ``max_compressed_size`` output-buffer contract: x_u8 uint8[B, S]
+    -> (comp uint8[B, max(tight, out_bytes)], zero padded; comp_bytes
+    int64[B]). Bytes at or past sizes[b] are never read into the archive."""
+    if x_u8.dtype != torch.uint8 or x_u8.dim() != 2:
+        raise TypeError("x_u8 must be a 2-D torch.uint8 tensor")
+    S = x_u8.shape[1]
+    x_u8 = F.pad(x_u8, (0, -S % 4)) if S % 4 else x_u8.contiguous()
+    out32, comp_bytes = ans_encode_core(
+        x_u8.view(torch.int32), sizes, prob_bits, use_checksum, hist, S,
+        hist_totals, native, plain,
+    )
+    comp = out32.view(torch.uint8)
+    cb = max_compressed_size(S) if out_bytes is None else out_bytes
+    if comp.shape[1] < cb:
+        comp = F.pad(comp, (0, cb - comp.shape[1]))
+    return comp, comp_bytes
+
+
 class StagedANS(NamedTuple):
-    streams: torch.Tensor  # int32[B, NR, STAGE_ROW_WORDS32]
+    # int32[B, NR, STAGE_ROW_WORDS32] (row layout) or
+    # int32[B, NB, STAGE_BLOCK_WORDS32] (classic)
+    streams: torch.Tensor
     comp_w: torch.Tensor  # int32[B, NB]
     uncomp_w: torch.Tensor  # int32[B, NB]
     states: torch.Tensor  # int32[B, NB, 32]
@@ -173,10 +300,12 @@ def _ans_parse_and_stage(
     out_capacity: int,
     capacities: Optional[torch.Tensor],
     prob_bits: int,
+    native: bool = True,
     plain: bool = False,
 ) -> StagedANS:
     """Parse and validate the ANS headers at per-member word offsets base32
-    of comp32's rows, then stage the states, blockWords and row streams.
+    of comp32's rows, then stage the states, blockWords and streams (one
+    per row of 4 blocks if native, else one per block), start-aligned.
 
     A wrong magic or prob_bits, an inconsistent block count, an extent past
     the row, or blockWords that break the format fail the member (size
@@ -200,7 +329,8 @@ def _ans_parse_and_stage(
     total_w = to_i32(hdr[:, 3])
     csum = hdr[:, 5]
 
-    magic_ok = hdr[:, 0] == ANS_MAGIC_NATIVE_VERSION
+    magic_ok = hdr[:, 0] == (
+        ANS_MAGIC_NATIVE_VERSION if native else ANS_MAGIC_VERSION)
     pb_ok = (hdr[:, 4] & 0xF) == prob_bits
     struct_ok = (n >= 0) & (total_w >= 0) & (nb_arch == _ceil_div(n, BLOCK_SIZE))
     _, data_off_arch = _layout(nb_arch.clamp(0, 1 << 24))
@@ -257,27 +387,32 @@ def _ans_parse_and_stage(
     uncomp_w = torch.where(live, uncomp_w, 0)
     starts = torch.where(live, starts, 0)
 
-    # one stream per row of 4 blocks; the row's start is repeated in each
-    # of its blocks' blockWords.y, so take the first
-    seg_words = F.pad(comp_w, (0, 4 * NR - NB)).reshape(B, NR, 4).sum(dim=2)
-    seg_starts = starts[:, 0::4]
-    success = success & (seg_starts + seg_words <= total_w[:, None]).all(dim=1)
+    if native:
+        # one stream per row of 4 blocks; the row's start is repeated in
+        # each of its blocks' blockWords.y, so take the first. A row sums 4
+        # blocks' counts, so the per-block extent check does not cover it
+        seg_words = F.pad(comp_w, (0, 4 * NR - NB)).reshape(B, NR, 4).sum(dim=2)
+        seg_starts = starts[:, 0::4]
+        success = success & (seg_starts + seg_words <= total_w[:, None]).all(dim=1)
+        NSEG, SW = NR, STAGE_ROW_WORDS32
+    else:
+        seg_words, seg_starts = comp_w, starts
+        NSEG, SW = NB, STAGE_BLOCK_WORDS32
     dead = ~success[:, None]
     seg_words = torch.where(dead, 0, seg_words)
     seg_starts = torch.where(dead, 0, seg_starts)
     comp_w = torch.where(dead, 0, comp_w)
     uncomp_w = torch.where(dead, 0, uncomp_w)
 
-    SW = STAGE_ROW_WORDS32
-    r_flat = torch.arange(B * NR, dtype=torch.int64, device=dev)
+    r_flat = torch.arange(B * NSEG, dtype=torch.int64, device=dev)
     streams = merge(
         [flat],
         r_flat * SW,
-        torch.zeros(B * NR, dtype=torch.int32, device=dev),
+        torch.zeros(B * NSEG, dtype=torch.int32, device=dev),
         ((abs_base + data_off)[:, None] + (seg_starts >> 1)).reshape(-1),
         ((seg_words + 1) >> 1).reshape(-1),
-        B * NR * SW,
-    ).reshape(B, NR, SW)
+        B * NSEG * SW,
+    ).reshape(B, NSEG, SW)
     return StagedANS(
         streams, comp_w.to(torch.int32), uncomp_w.to(torch.int32), states, pdf,
         success, n, csum,
@@ -288,23 +423,28 @@ def ans_decode_core(
     comp32: torch.Tensor,
     base32: torch.Tensor,
     out_capacity: int,
-    prob_bits: int,
+    prob_bits: int = DEFAULT_PROB_BITS,
     capacities: Optional[torch.Tensor] = None,
+    native: bool = True,
     plain: bool = False,
 ):
-    """Decode the ANS archives at word offsets base32 of comp32's rows into
-    packed bytes (the JAX package's ``models/ans.py:515-568``, native).
+    """Decode the ANS archives (row-stream if native, else classic) at word
+    offsets base32 of comp32's rows into packed bytes (the JAX package's
+    ``models/ans.py:515-568``).
 
     Returns (out32 int32[B, ceil(out_capacity / 4)], zero past each
     member's size and all zero for failed members; success bool[B];
     n int64[B]; csum int64[B])."""
     st = _ans_parse_and_stage(
-        comp32, base32, out_capacity, capacities, prob_bits, plain=plain
+        comp32, base32, out_capacity, capacities, prob_bits, native, plain
     )
     B = comp32.shape[0]
     NB = st.comp_w.shape[1]
     lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
-    decode = decode_rows_plain if plain else decode_rows
+    if native:
+        decode = decode_rows_plain if plain else decode_rows
+    else:
+        decode = decode_blocks_plain if plain else decode_blocks
     out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut, prob_bits)
     OW = _ceil_div(out_capacity, 4)
     out32 = out.reshape(B, NB * (BLOCK_SIZE // 4))[:, :OW]
@@ -319,6 +459,7 @@ def ans_decode_join16_core(
     prob_bits: int,
     bf16: bool,
     capacities: Optional[torch.Tensor] = None,
+    native: bool = True,
     plain: bool = False,
 ):
     """Decode the exponent-plane ANS archives at word offsets base32 and
@@ -329,13 +470,47 @@ def ans_decode_join16_core(
     n int64[B], csum int64[B]). words32 is not masked by success: the float
     codec applies its combined success."""
     st = _ans_parse_and_stage(
-        comp32, base32, out_floats, capacities, prob_bits, plain=plain
+        comp32, base32, out_floats, capacities, prob_bits, native, plain
     )
     B = comp32.shape[0]
     NB = st.comp_w.shape[1]
     lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
-    decode = decode_join16_plain if plain else decode_join16
+    if native:
+        decode = decode_join16_plain if plain else decode_join16
+    else:
+        decode = decode_join16_blocks_plain if plain else decode_join16_blocks
     out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut,
                  raw32_blocks, prob_bits, bf16)
     OW = _ceil_div(2 * out_floats, 4)
     return out.reshape(B, NB * 2048)[:, :OW], st.success, st.n, st.csum
+
+
+def ans_decode_padded(
+    comp_u8: torch.Tensor,
+    out_capacity: int,
+    prob_bits: int = DEFAULT_PROB_BITS,
+    capacities: Optional[torch.Tensor] = None,
+    native: bool = True,
+    plain: bool = False,
+):
+    """Byte-row wrapper around ``ans_decode_core``: archives at the starts
+    of comp_u8's rows (uint8[B, C]) -> (out uint8[B, out_capacity], zero
+    past each member's size; success bool[B]; n int64[B]; csum int64[B])."""
+    if comp_u8.dtype != torch.uint8 or comp_u8.dim() != 2:
+        raise TypeError("comp_u8 must be a 2-D torch.uint8 tensor")
+    C = comp_u8.shape[1]
+    comp_u8 = F.pad(comp_u8, (0, -C % 4)) if C % 4 else comp_u8.contiguous()
+    B = comp_u8.shape[0]
+    out32, success, n, csum = ans_decode_core(
+        comp_u8.view(torch.int32),
+        torch.zeros(B, dtype=torch.int64, device=comp_u8.device),
+        out_capacity, prob_bits, capacities, native, plain,
+    )
+    return out32.contiguous().view(torch.uint8)[:, :out_capacity], success, n, csum
+
+
+def ans_get_compressed_info(comp_u8: torch.Tensor):
+    """Decoded sizes and stored checksums (int64[B] each) from the archive
+    headers at the starts of comp_u8's rows (GpuANSInfo.cuh:16-37)."""
+    hdr = to_u32(comp_u8[:, :32].contiguous().view(torch.int32))
+    return hdr[:, 2], hdr[:, 5]

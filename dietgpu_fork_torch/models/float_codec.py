@@ -1,27 +1,29 @@
-"""Float codec (fp16, bf16, fp32, fp64) over row-stream ANS: compress and
-decompress of u32-packed float rows.
+"""Float codec (fp16, bf16, fp32, fp64) over row-stream or classic ANS:
+compress and decompress of u32-packed float rows.
 
-A port of the JAX package's ``models/float_codec.py`` with ``native=True``:
+A port of the JAX package's ``models/float_codec.py``:
 
 * compress: split + histogram + checksum (K1 for 16-bit, K5 for fp32 and
-  fp64) -> table build -> K2 rANS encode into row streams (one launch for
-  both fp64 planes) -> one K3 merge placing the float header, the raw
-  sections and the ANS archives' runs into each member's archive row;
+  fp64) -> table build -> K2 rANS encode into row or block streams (one
+  launch for both fp64 planes) -> one K3 merge placing the float header,
+  the raw sections and the ANS archives' runs into each member's archive
+  row;
 * decompress, 16-bit: float header parse -> K3 stages the raw section
   block-major -> ANS parse, validation and two K3 staging merges -> K4
   decodes and joins into float words (the JAX package's fused branch);
 * decompress, fp32 and fp64: float header parse -> per plane, ANS parse,
   validation, staging and a K6 decode to bytes -> one K3 merge staging both
   raw sections -> K7 joins planes and sections into float words (the JAX
-  package's default two-pass branch).
+  package's default two-pass branch);
+* verify_checksum folds the XOR of the decoded bytes in plain torch
+  (the JAX package's ``float_codec.py:453-457``).
 
 Archive layout per member (u32 words): float header (8; word 4 holds the
 first ANS archive's byte size for fp64), raw section 1, raw section 2
 (fp32, fp64), one ANS archive per exponent plane. Sections are 16 B
-aligned; members with n >= FLOAT_ALIGN_MIN use the v2 container, where
-each raw section starts on a 128-word boundary. The classic 0xD00D layout
-and the decode-side checksum are not in this port yet and raise
-``NotImplementedError``.
+aligned; native (row-stream) members with n >= FLOAT_ALIGN_MIN use the v2
+container, where each raw section starts on a 128-word boundary; classic
+archives are always v1 containers.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from ..core.constants import (
     max_float_compressed_size,
 )
 from ..ops.bitops import from_u32, to_i32, to_u32
+from ..ops.checksum import checksum_packed
 from ..ops.float_split import (
     join_wide,
     join_wide_plain,
@@ -92,13 +95,16 @@ def _section_word_counts(n, ft: FloatType):
     return r(n, 4), r(n, 8) // 2
 
 
-def _check_type(float_type, native: bool) -> FloatType:
+def _check_type(float_type) -> FloatType:
     ft = FloatType(float_type)
     if ft not in FLOAT_WORD_SIZE:
         raise ValueError(f"unsupported float type {ft.name}")
-    if not native:
-        raise NotImplementedError("the classic 0xD00D layout is not in the port yet")
     return ft
+
+
+def _floats_capacity(W32: int, ft: FloatType) -> int:
+    """Floats that rows of W32 u32 words hold."""
+    return 4 * W32 // FLOAT_WORD_SIZE[FloatType(ft)]
 
 
 def archive_row_words(W32: int, float_type: FloatType) -> int:
@@ -133,11 +139,12 @@ def float_compress_core(
     data32: int32[B, W32] packed float words (u32 bits; an fp64 float is a
     (lo, hi) word pair); n: int[B] float counts (n[b] <= the row's
     capacity). Returns (out32 int32[B, CWf], the archives, zero past
-    comp_bytes; comp_bytes int64[B]). plain=True runs every kernel's plain
+    comp_bytes; comp_bytes int64[B]). native picks the row-stream ANS
+    layout, else the classic one. plain=True runs every kernel's plain
     PyTorch version wherever the tensors lie (to hold the kernels against
     them on the card).
     """
-    ft = _check_type(float_type, native)
+    ft = _check_type(float_type)
     dev = data32.device
     # the split takes whole groups of 4 floats: FLOAT_WORD_SIZE words each
     req = FLOAT_WORD_SIZE[ft]
@@ -145,7 +152,7 @@ def float_compress_core(
         data32 = F.pad(data32, (0, req - data32.shape[1] % req))
     data32 = data32.contiguous()
     B, W32 = data32.shape
-    S_cap = 4 * W32 // FLOAT_WORD_SIZE[ft]
+    S_cap = _floats_capacity(W32, ft)
     P = FLOAT_NUM_COMP_SEGMENTS[ft]
     n64 = n.to(device=dev, dtype=torch.int64)
     if bool(((n64 < 0) | (n64 > S_cap)).any()):
@@ -169,12 +176,13 @@ def float_compress_core(
     csum = to_u32(csum_f) if use_checksum else torch.zeros_like(n64)
 
     # one encode for every plane: plane p of member b is member p*B + b
-    seg = ans_encode_sections(exp, n32.repeat(P), hist, prob_bits, S_cap,
-                              plain=plain)
+    seg = ans_encode_sections(exp, n32.repeat(P), prob_bits, hist=hist,
+                              s_bytes=S_cap, native=native, plain=plain)
     seg_bytes = seg.comp_bytes.reshape(P, B)
 
     sec_w = _section_word_counts(n64, ft)[: len(secs)]
-    is_al = n64 >= FLOAT_ALIGN_MIN
+    # v2 containers hold native members only: classic archives are v1
+    is_al = (n64 >= FLOAT_ALIGN_MIN) & native
     sec_dst = [torch.where(is_al, 128, 8)]
     for w in sec_w:
         sec_dst.append(sec_dst[-1] + torch.where(is_al, _align_section(w), w))
@@ -239,14 +247,13 @@ def float_decompress_core(
     Returns (words32 int32[B, OW], zero past n and for failed members, with
     OW = ceil(out_floats / 2) for 16-bit types and 4E (fp32) or 8E (fp64)
     for E = max(ceil(out_floats / 4), 1); success bool[B]; n int64[B]; the
-    archive's checksum int64[B]; the computed checksum, zeros). A member
-    fails, raising nothing, on a wrong header, a failed ANS validation, or
-    n above its capacity (default out_floats). plain=True as in
-    float_compress_core.
+    archive's checksum int64[B]; the checksum of the decoded bytes, int64[B],
+    zeros unless verify_checksum). A member fails, raising nothing, on a
+    wrong header, a failed ANS validation, or n above its capacity (default
+    out_floats). native: the embedded ANS layout (the API reads it from the
+    archive). plain=True as in float_compress_core.
     """
-    ft = _check_type(float_type, native)
-    if verify_checksum:
-        raise NotImplementedError("verify_checksum is not in the port yet")
+    ft = _check_type(float_type)
     dev = comp32.device
     comp32 = comp32.contiguous()
     B, CW = comp32.shape
@@ -293,11 +300,12 @@ def float_decompress_core(
         ).reshape(B, NB, 1024)
         words32, ok, psize, _ = ans_decode_join16_core(
             comp32, ans_base, raw32, out_floats, prob_bits,
-            ft == FloatType.BFLOAT16, capacities, plain=plain,
+            ft == FloatType.BFLOAT16, capacities, native, plain,
         )
         success = success & ok & (psize == n)
         words32 = torch.where(success[:, None], words32, 0)
-        return words32, success, n, csum_arch, torch.zeros_like(n)
+        return (words32, success, n, csum_arch,
+                _decoded_checksum(words32, n, ft, verify_checksum))
 
     # one decode per exponent plane; the second archive starts first_seg
     # bytes after the first
@@ -306,7 +314,7 @@ def float_decompress_core(
     for p in range(FLOAT_NUM_COMP_SEGMENTS[ft]):
         plane, ok, psize, _ = ans_decode_core(
             comp32, ans_base + p * (first_seg >> 2), out_floats, prob_bits,
-            capacities, plain=plain,
+            capacities, native, plain,
         )
         if plane.shape[1] < E:  # out_floats == 0
             plane = F.pad(plane, (0, E - plane.shape[1]))
@@ -334,4 +342,44 @@ def float_decompress_core(
     # zeroes failed members
     join = join_wide_plain if plain else join_wide
     words32 = torch.where(success[:, None], join(planes, sec1, sec2, ft), 0)
-    return words32, success, n, csum_arch, torch.zeros_like(n)
+    return (words32, success, n, csum_arch,
+            _decoded_checksum(words32, n, ft, verify_checksum))
+
+
+def _decoded_checksum(words32, n, ft: FloatType, verify: bool):
+    """XOR of the first n floats' bytes of each decoded row, or zeros."""
+    if not verify:
+        return torch.zeros_like(n)
+    return checksum_packed(to_u32(words32), n * FLOAT_WORD_SIZE[ft])
+
+
+def float_compress_padded(
+    data32: torch.Tensor,
+    n: torch.Tensor,
+    float_type: FloatType,
+    prob_bits: int = DEFAULT_PROB_BITS,
+    use_checksum: bool = False,
+    out_bytes: Optional[int] = None,
+    native: bool = True,
+    plain: bool = False,
+):
+    """Byte-row wrapper with the reference's getMaxFloatCompressedSize
+    output-buffer contract: (comp uint8[B, max(4 CWf, out_bytes)], zero
+    padded; comp_bytes int64[B])."""
+    ft = _check_type(float_type)
+    out32, comp_bytes = float_compress_core(
+        data32, n, ft, prob_bits, use_checksum, native, plain
+    )
+    comp = out32.view(torch.uint8)
+    cb = (max_float_compressed_size(ft, _floats_capacity(data32.shape[1], ft))
+          if out_bytes is None else out_bytes)
+    if comp.shape[1] < cb:
+        comp = F.pad(comp, (0, cb - comp.shape[1]))
+    return comp, comp_bytes
+
+
+def float_get_compressed_info(comp_u8: torch.Tensor):
+    """Header read: (sizes in floats, float types, stored checksums), each
+    int64[B] (GpuFloatInfo.cuh:18-62)."""
+    h = to_u32(comp_u8[:, :16].contiguous().view(torch.int32))
+    return h[:, 1], h[:, 2] & 0xF, h[:, 3]

@@ -32,9 +32,11 @@ from typing import Sequence, Tuple
 import torch
 
 from ..core.config import use_kernels
-from ..core.constants import FLOAT_WORD_SIZE, NUM_SYMBOLS, FloatType
+from ..core.constants import FLOAT_WORD_SIZE, FloatType
 from ..runtime import cuda_kernels as K
 from .bitops import M32, from_u32, to_u32
+from .checksum import checksum_packed, mask_packed_bytes
+from .histogram import byte_hist_plain
 
 
 def _rotl16x2(x):
@@ -69,36 +71,10 @@ def _halves(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([x & 0xFFFF, x >> 16], dim=-1).flatten(-2)
 
 
-def mask_packed_bytes(x: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
-    """Zero all bytes at positions >= nbytes[b] of u32 rows (int64
-    carriers)."""
-    W = x.shape[1]
-    wpos = torch.arange(W, dtype=torch.int64, device=x.device)[None, :]
-    c = (nbytes.to(torch.int64)[:, None] - 4 * wpos).clamp(0, 4)
-    return x & (((1 << (8 * c)) - 1) & M32)
-
-
-def histogram_packed(x: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
-    """256-bin histogram of the first nbytes[b] bytes of each u32 row."""
-    by = unpack_bytes(x)
-    pos = torch.arange(by.shape[1], dtype=torch.int64, device=x.device)
-    valid = (pos[None, :] < nbytes.to(torch.int64)[:, None]).to(torch.int64)
-    hist = torch.zeros((x.shape[0], NUM_SYMBOLS), dtype=torch.int64,
-                       device=x.device)
-    return hist.scatter_add_(1, by, valid)
-
-
-def checksum_packed(x: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
-    """XOR of the first nbytes[b] bytes of each u32 row: XOR the masked
-    words, then fold the four byte positions (ops/checksum.py:45-53)."""
-    w = torch.nn.functional.pad(mask_packed_bytes(x, nbytes), (0, 1))
-    while w.shape[1] > 1:
-        if w.shape[1] % 2:
-            w = torch.nn.functional.pad(w, (0, 1))
-        w = w[:, 0::2] ^ w[:, 1::2]
-    w = w[:, 0]
-    w = w ^ (w >> 16)
-    return (w ^ (w >> 8)) & 0xFF
+def _hist(x: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
+    """int32[B, 256] histogram of the first nbytes[b] bytes of u32 rows
+    (int64 carriers), by K8's plain version."""
+    return byte_hist_plain(from_u32(x).view(torch.uint8), nbytes)[0]
 
 
 def _check_split_args(data32, n, row_mult: int = 2):
@@ -146,9 +122,9 @@ def split16_hist_plain(data32, n, bf16: bool):
     raw = _pack4(we & 0xFF, (we >> 16) & 0xFF, wo & 0xFF, (wo >> 16) & 0xFF)
     n64 = n.to(torch.int64)
     raw = mask_packed_bytes(raw, n64)
-    hist = histogram_packed(exp, n64)
+    hist = _hist(exp, n64)
     csum = checksum_packed(x, 2 * n64)
-    return from_u32(exp), from_u32(raw), hist.to(torch.int32), csum.to(torch.int32)
+    return from_u32(exp), from_u32(raw), hist, csum.to(torch.int32)
 
 
 def join16(exp_bytes: torch.Tensor, raw_bytes: torch.Tensor, bf16: bool):
@@ -208,13 +184,13 @@ def split_wide_hist_plain(data32, n, float_type):
         sec1 = v_lo
         sec2 = (v_hi[:, 0::2] & 0xFFFF) | ((v_hi[:, 1::2] & 0xFFFF) << 16)
         nb1, nb2 = 4 * n64, 2 * n64
-    hist = torch.cat([histogram_packed(p, n64) for p in planes])
+    hist = torch.cat([_hist(p, n64) for p in planes])
     csum = checksum_packed(x, FLOAT_WORD_SIZE[ft] * n64)
     return (
         from_u32(torch.cat(planes)),
         from_u32(mask_packed_bytes(sec1, nb1)),
         from_u32(mask_packed_bytes(sec2, nb2)),
-        hist.to(torch.int32),
+        hist,
         csum.to(torch.int32),
     )
 

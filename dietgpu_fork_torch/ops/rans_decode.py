@@ -1,22 +1,26 @@
-"""Row-stream (0xDB0D) rANS decode: kernel K6 (to packed bytes), kernel K4
-(fused with the 16-bit float join), and their plain versions, which share
-one walk.
+"""rANS decode: kernel K6 (to packed bytes), kernel K4 (fused with the
+16-bit float join), each in the row-stream (0xDB0D) and the classic
+(0xD00D) layout, and their plain versions, which share one walk.
 
-Each row of 4 blocks shares one reverse cursor over its stream. The walk is
-bottom-aligned (block iteration k = i - (128 - nsteps) at step i), so every
-active block of a row undoes the same encode step and the stream's reverse
-order is one suffix count over the row's 128 lanes
+Row layout: each row of 4 blocks shares one reverse cursor over its
+stream. The walk is bottom-aligned (block iteration k = i - (128 - nsteps)
+at step i), so every active block of a row undoes the same encode step and
+the stream's reverse order is one suffix count over the row's 128 lanes
 (the JAX package's ``ops/rans_decode.py:135``, ``decode_blocks_rows``).
+Classic layout: each block has its own stream and cursor, the same walk
+over a group of one block (the JAX package's ``ops/rans_decode.py:40``,
+``decode_blocks``, whose top-aligned schedule visits the same positions).
 Symbols at or past a block's decoded count are 0.
 
-* ``decode_rows`` packs the symbols into u32 words: the contract of
-  ``decode_blocks_rows`` and of the Pallas ``decode_blocks_fused2`` with
-  ``row_stream=True``.
-* ``decode_join16`` joins each exponent byte with its raw byte
-  (``float_split.py:193-202``): out = raw | sym << 8, rotated right by 1
-  within 16 bits for bf16, and 0 at positions at or past a block's count.
+* ``decode_rows`` / ``decode_blocks`` pack the symbols into u32 words: the
+  contract of ``decode_blocks_rows`` / ``decode_blocks`` and of the Pallas
+  ``decode_blocks_fused2`` with ``row_stream=True`` / ``False``.
+* ``decode_join16`` / ``decode_join16_blocks`` join each exponent byte
+  with its raw byte (``float_split.py:193-202``): out = raw | sym << 8,
+  rotated right by 1 within 16 bits for bf16, and 0 at positions at or
+  past a block's count.
 
-Both send CUDA tensors to the kernels (``csrc/rans_decode_rows.cu``) and
+All send CUDA tensors to the kernels (``csrc/rans_decode_rows.cu``) and
 CPU tensors to the plain versions.
 """
 
@@ -39,17 +43,17 @@ from .float_split import join16, pack_bytes, unpack_bytes
 
 
 def _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
-                       raw32=None):
+                       raw32=None, group: int = 4):
     if prob_bits not in VALID_PROB_BITS:
         raise ValueError(f"prob_bits must be one of {VALID_PROB_BITS}")
     if streams.dim() != 3:
-        raise TypeError("streams must be [B, NR, SW]")
+        raise TypeError("streams must be [B, streams, SW]")
     B, NR, _ = streams.shape
     if comp_w.dim() != 2 or comp_w.shape[0] != B:
         raise TypeError("comp_w must be [B, NB]")
     NB = comp_w.shape[1]
-    if NR != -(-NB // 4):
-        raise ValueError(f"streams has {NR} rows for {NB} blocks")
+    if NR != -(-NB // group):
+        raise ValueError(f"{NR} streams for {NB} blocks in groups of {group}")
     checks = [
         ("streams", streams, streams.shape),
         ("comp_w", comp_w, (B, NB)),
@@ -88,7 +92,27 @@ def decode_rows_plain(streams, comp_w, uncomp_w, states, lut,
                       prob_bits: int) -> torch.Tensor:
     """Plain PyTorch version of K6; runs on any device."""
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits)
-    sym = _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    sym = _walk(streams, comp_w, uncomp_w, states, lut, prob_bits, 4)
+    return from_u32(pack_bytes(sym))
+
+
+def decode_blocks(streams, comp_w, uncomp_w, states, lut,
+                  prob_bits: int) -> torch.Tensor:
+    """As ``decode_rows``, over per-block streams: streams int32[B, NB, SW]
+    start-aligned staged block streams."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       group=1)
+    if use_kernels(streams):
+        return K.decode_blocks(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    return decode_blocks_plain(streams, comp_w, uncomp_w, states, lut, prob_bits)
+
+
+def decode_blocks_plain(streams, comp_w, uncomp_w, states, lut,
+                        prob_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of K6's classic layout; runs on any device."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       group=1)
+    sym = _walk(streams, comp_w, uncomp_w, states, lut, prob_bits, 1)
     return from_u32(pack_bytes(sym))
 
 
@@ -112,32 +136,61 @@ def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
 
 def decode_join16_plain(streams, comp_w, uncomp_w, states, lut, raw32,
                         prob_bits: int, bf16: bool) -> torch.Tensor:
-    """Plain PyTorch version of K4; runs on any device."""
+    """Plain PyTorch version of K4's row layout; runs on any device."""
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits, raw32)
-    sym = _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits)
-    p = torch.arange(BLOCK_SIZE, dtype=torch.int64, device=streams.device)
+    sym = _walk(streams, comp_w, uncomp_w, states, lut, prob_bits, 4)
+    return _join(sym, uncomp_w, raw32, bf16)
+
+
+def decode_join16_blocks(streams, comp_w, uncomp_w, states, lut, raw32,
+                         prob_bits: int, bf16: bool) -> torch.Tensor:
+    """As ``decode_join16``, over per-block streams: streams
+    int32[B, NB, SW] start-aligned staged block streams."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       raw32, group=1)
+    if use_kernels(streams):
+        return K.decode_join16_blocks(
+            streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
+        )
+    return decode_join16_blocks_plain(
+        streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
+    )
+
+
+def decode_join16_blocks_plain(streams, comp_w, uncomp_w, states, lut, raw32,
+                               prob_bits: int, bf16: bool) -> torch.Tensor:
+    """Plain PyTorch version of K4's classic layout; runs on any device."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       raw32, group=1)
+    sym = _walk(streams, comp_w, uncomp_w, states, lut, prob_bits, 1)
+    return _join(sym, uncomp_w, raw32, bf16)
+
+
+def _join(sym, uncomp_w, raw32, bf16: bool) -> torch.Tensor:
+    p = torch.arange(BLOCK_SIZE, dtype=torch.int64, device=sym.device)
     keep = p < uncomp_w.to(torch.int64)[..., None]
     raw = torch.where(keep, unpack_bytes(to_u32(raw32)), 0)
     return from_u32(join16(sym, raw, bf16))
 
 
-def _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
-    """The decode walk over every row. Returns the symbols, int64
+def _walk(streams, comp_w, uncomp_w, states, lut, prob_bits: int, group: int):
+    """The decode walk over every stream of `group` consecutive blocks (4:
+    the row layout, 1: the classic one). Returns the symbols, int64
     [B, NB, 4096], 0 at positions at or past each block's count."""
     dev = streams.device
     B, NR, SW = streams.shape
     NB = comp_w.shape[1]
-    NB4 = 4 * NR
+    NB4 = group * NR
     S = STEPS_PER_BLOCK
 
     def pad4(a):  # [B, NB, ...] -> [B, NB4, ...]
         return F.pad(a, [0, 0] * (a.dim() - 2) + [0, NB4 - NB])
 
-    uw = pad4(uncomp_w.to(torch.int64)).reshape(B, NR, 4)
-    cw = pad4(comp_w.to(torch.int64)).reshape(B, NR, 4)
+    uw = pad4(uncomp_w.to(torch.int64)).reshape(B, NR, group)
+    cw = pad4(comp_w.to(torch.int64)).reshape(B, NR, group)
     r = ((uw - 1) % WARP_SIZE) + 1  # tail group width
     nsteps = (uw + WARP_SIZE - 1) // WARP_SIZE
-    st = to_u32(pad4(states)).reshape(B, NR, 4 * WARP_SIZE)
+    st = to_u32(pad4(states)).reshape(B, NR, group * WARP_SIZE)
     ptr = cw.sum(dim=2)
     lut64 = to_u32(lut)
     rows = to_u32(streams)
@@ -150,13 +203,14 @@ def _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
         active = (k >= 0) & (uw > 0)
         valid = (
             active[..., None] & ((k[..., None] > 0) | (lanes < r[..., None]))
-        ).reshape(B, NR, 4 * WARP_SIZE)
+        ).reshape(B, NR, group * WARP_SIZE)
         ent = torch.gather(lut64, 1, (st & smask).reshape(B, -1)).reshape(st.shape)
         syms.append(ent & 0xFF)
         pdf = (ent >> 8) & 0xFFF
         st = torch.where(valid, (pdf * (st >> prob_bits) + (ent >> 20)) & M32, st)
         read = valid & (st < ANS_MIN_STATE)
-        # reads of lanes >= l: the reverse of the blocks-then-lanes order
+        # reads of lanes >= l in the stream: the reverse of the
+        # blocks-then-lanes order
         suffix = read.flip(2).to(torch.int64).cumsum(2).flip(2)
         idx16 = ptr[..., None] - suffix
         w32 = torch.gather(rows, 2, (idx16 >> 1).clamp(0, SW - 1))
@@ -167,7 +221,7 @@ def _walk_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
     # step i decoded positions 32 * (127 - i) + lane of every block
     sym = (
         torch.stack(syms).flip(0)
-        .reshape(S, B, NR, 4, WARP_SIZE)
+        .reshape(S, B, NR, group, WARP_SIZE)
         .permute(1, 2, 3, 0, 4)
         .reshape(B, NB4, BLOCK_SIZE)[:, :NB]
     )

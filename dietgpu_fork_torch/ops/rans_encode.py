@@ -1,16 +1,21 @@
-"""Interleaved 32-state rANS encoder for the row-stream (0xDB0D) layout:
-kernel K2 and its plain version.
+"""Interleaved 32-state rANS encoder: kernel K2, in the row-stream
+(0xDB0D) and the classic (0xD00D) layout, and its plain versions.
 
 Each block of 4096 bytes is coded by 32 interleaved states over 128 steps
-(state l codes byte 32*s + l at step s). The emissions of each ROW of 4
-consecutive blocks form one shared stream, step-major and, within a step,
-blocks then lanes ascending (the JAX package's ``ops/rans_encode.py:112``,
-the contract of ``encode_blocks_rows``).
+(state l codes byte 32*s + l at step s).
 
-``encode_rows`` sends a CUDA tensor to the kernel
-(``csrc/rans_encode_rows.cu``) and a CPU tensor to ``encode_rows_plain``,
-built from the JAX package's ``_walk_cpu`` and its compaction (which sorts
-on each emission's rank in the row; here the rank indexes a scatter).
+* ``encode_rows``: the emissions of each ROW of 4 consecutive blocks form
+  one shared stream, step-major and, within a step, blocks then lanes
+  ascending (the JAX package's ``ops/rans_encode.py:112``, the contract of
+  ``encode_blocks_rows``).
+* ``encode_blocks``: each block has its own stream, step-major and lanes
+  ascending (the JAX package's ``ops/rans_encode.py:51``,
+  ``encode_blocks``), the CUDA reference's own layout.
+
+Both send a CUDA tensor to the kernel (``csrc/rans_encode_rows.cu``) and a
+CPU tensor to the plain version, built from the JAX package's
+``_walk_cpu`` and its compaction (which sorts on each emission's rank in
+its stream; here the rank indexes a scatter).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from ..core.constants import (
     ANS_START_STATE,
     ANS_STATE_BITS,
     BLOCK_SIZE,
+    MAX_BLOCK_WORDS32,
     MAX_ROW_WORDS32,
     NUM_SYMBOLS,
     STEPS_PER_BLOCK,
@@ -65,6 +71,19 @@ def encode_rows(x32, sizes, packed, magic, prob_bits: int):
     return encode_rows_plain(x32, sizes, packed, magic, prob_bits)
 
 
+def encode_blocks(x32, sizes, packed, magic, prob_bits: int):
+    """Encode every block of a batch into per-block streams.
+
+    Arguments as ``encode_rows``. Returns (states int32[B, NB, 32], streams
+    int32[B, NB, MAX_BLOCK_WORDS32] of u16 pairs, zero past each block's
+    words, num_words int32[B, NB]).
+    """
+    _check_encode_args(x32, sizes, packed, magic, prob_bits)
+    if use_kernels(x32):
+        return K.encode_blocks(x32, sizes, packed, magic, prob_bits)
+    return encode_blocks_plain(x32, sizes, packed, magic, prob_bits)
+
+
 def _walk(x32, sizes, packed, magic, prob_bits):
     """The 128-step encode walk. Returns (states int64[B, NB, 32],
     words int64[S, B, NB, 32], mask bool[S, B, NB, 32])."""
@@ -101,28 +120,43 @@ def _walk(x32, sizes, packed, magic, prob_bits):
     return states, torch.stack(words), torch.stack(masks)
 
 
-def encode_rows_plain(x32, sizes, packed, magic, prob_bits: int):
-    """Plain PyTorch version of K2; runs on any device."""
+def _compact(words, mask, group: int, cap32: int):
+    """Order each stream's emissions: (S, B, NB, 32) -> int64[B, G, cap32]
+    u16 pairs for streams of `group` consecutive blocks (G = ceil(NB /
+    group)), step-major, then blocks, then lanes. Each emitted word goes to
+    its rank in its stream; words past cap32 u16 pairs, and non-emissions,
+    go to a dropped slot."""
+    S, B, NB, _ = words.shape
+    G = -(-NB // group)
+
+    def streams(a):  # (S, B, NB, 32) -> (B, G, S*group*32)
+        a = torch.nn.functional.pad(a, (0, 0, 0, G * group - NB))
+        return a.reshape(S, B, G, group * WARP_SIZE).permute(1, 2, 0, 3).reshape(
+            B, G, S * group * WARP_SIZE)
+
+    words_g = streams(words)
+    mask_g = streams(mask)
+    cap = 2 * cap32
+    rank = torch.cumsum(mask_g.to(torch.int64), dim=2) - 1
+    slot = torch.where(mask_g & (rank < cap), rank, cap)
+    w16 = torch.zeros((B, G, cap + 1), dtype=torch.int64, device=words.device)
+    w16 = w16.scatter_(2, slot, torch.where(mask_g, words_g, 0))[..., :cap]
+    return w16[..., 0::2] | (w16[..., 1::2] << 16)
+
+
+def encode_blocks_plain(x32, sizes, packed, magic, prob_bits: int):
+    """Plain PyTorch version of K2's classic layout; runs on any device."""
     _check_encode_args(x32, sizes, packed, magic, prob_bits)
     states, words, mask = _walk(x32, sizes, packed, magic, prob_bits)
-    S, B, NB, _ = words.shape
-    NR = -(-NB // 4)
-    NB4 = 4 * NR
     num_words = mask.sum(dim=(0, 3)).to(torch.int32)
+    streams = _compact(words, mask, 1, MAX_BLOCK_WORDS32)
+    return from_u32(states), from_u32(streams), num_words
 
-    def rows(a):  # (S, B, NB, 32) -> (B, NR, S*128): step, block, lane
-        a = torch.nn.functional.pad(a, (0, 0, 0, NB4 - NB))
-        return a.reshape(S, B, NR, 4 * WARP_SIZE).permute(1, 2, 0, 3).reshape(
-            B, NR, S * 4 * WARP_SIZE)
 
-    words_r = rows(words)
-    mask_r = rows(mask)
-    # each emitted word goes to its rank among the row's emissions; words
-    # past the row's worst case, and non-emissions, go to a dropped slot
-    cap = 2 * MAX_ROW_WORDS32
-    rank = torch.cumsum(mask_r.to(torch.int64), dim=2) - 1
-    slot = torch.where(mask_r & (rank < cap), rank, cap)
-    w16 = torch.zeros((B, NR, cap + 1), dtype=torch.int64, device=x32.device)
-    w16 = w16.scatter_(2, slot, torch.where(mask_r, words_r, 0))[..., :cap]
-    streams = w16[..., 0::2] | (w16[..., 1::2] << 16)
+def encode_rows_plain(x32, sizes, packed, magic, prob_bits: int):
+    """Plain PyTorch version of K2's row layout; runs on any device."""
+    _check_encode_args(x32, sizes, packed, magic, prob_bits)
+    states, words, mask = _walk(x32, sizes, packed, magic, prob_bits)
+    num_words = mask.sum(dim=(0, 3)).to(torch.int32)
+    streams = _compact(words, mask, 4, MAX_ROW_WORDS32)
     return from_u32(states), from_u32(streams), num_words

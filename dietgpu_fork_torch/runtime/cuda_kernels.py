@@ -26,7 +26,13 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from ..core.constants import MAX_ROW_WORDS32, NUM_SYMBOLS, WARP_SIZE, FloatType
+from ..core.constants import (
+    MAX_BLOCK_WORDS32,
+    MAX_ROW_WORDS32,
+    NUM_SYMBOLS,
+    WARP_SIZE,
+    FloatType,
+)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -38,6 +44,7 @@ SOURCES = (
     "rans_decode_rows.cu",
     "split_wide_hist.cu",
     "join_wide.cu",
+    "byte_hist.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +60,10 @@ launches: Dict[str, int] = {
     "split_wide_hist": 0,
     "rans_decode_rows": 0,
     "join_wide": 0,
+    "byte_hist": 0,
+    "rans_encode_blocks": 0,
+    "rans_decode_blocks": 0,
+    "rans_decode_join16_blocks": 0,
 }
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
@@ -135,6 +146,10 @@ def library() -> ctypes.CDLL:
         "dgt_split_wide_hist": [P, L, L, P, I, P, P, P, P, P, P],
         "dgt_rans_decode_rows": [P, L, P, P, P, P, I, L, L, P, P],
         "dgt_join_wide": [P, L, P, L, P, L, P, L, L, L, I, P, P],
+        "dgt_byte_hist": [P, L, L, P, P, P, P],
+        "dgt_rans_encode_blocks": [P, P, P, P, L, L, I, P, P, P, P],
+        "dgt_rans_decode_blocks": [P, L, P, P, P, P, I, L, L, P, P],
+        "dgt_rans_decode_join16_blocks": [P, L, P, P, P, P, I, P, L, L, I, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -189,8 +204,8 @@ def split16_hist(data32: torch.Tensor, n: torch.Tensor, bf16: bool):
     return exp, raw, hist, csum
 
 
-def encode_rows(x32, sizes, packed, magic, prob_bits: int):
-    """K2 launch; arguments as ``ops.rans_encode.encode_rows``."""
+def _encode(fn: str, counter: str, x32, sizes, packed, magic, prob_bits: int,
+            classic: bool):
     _cuda_only(x32, sizes, packed, magic)
     B, W = x32.shape
     _batch_ok(B)
@@ -198,18 +213,32 @@ def encode_rows(x32, sizes, packed, magic, prob_bits: int):
     NR = -(-NB // 4)
     dev = x32.device
     states = torch.empty((B, NB, WARP_SIZE), dtype=torch.int32, device=dev)
-    streams = torch.empty((B, NR, MAX_ROW_WORDS32), dtype=torch.int32, device=dev)
+    shape = (B, NB, MAX_BLOCK_WORDS32) if classic else (B, NR, MAX_ROW_WORDS32)
+    streams = torch.empty(shape, dtype=torch.int32, device=dev)
     num_words = torch.empty((B, NB), dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
-        err = lib.dgt_rans_encode_rows(
+        err = getattr(lib, fn)(
             x32.data_ptr(), sizes.data_ptr(), packed.data_ptr(),
             magic.data_ptr(), B, NB, prob_bits, states.data_ptr(),
             streams.data_ptr(), num_words.data_ptr(), _stream(x32),
         )
-    _check(lib, err, "rans_encode_rows")
-    launches["rans_encode_rows"] += 1
+    _check(lib, err, counter)
+    launches[counter] += 1
     return states, streams, num_words
+
+
+def encode_rows(x32, sizes, packed, magic, prob_bits: int):
+    """K2 launch, row layout; arguments as ``ops.rans_encode.encode_rows``."""
+    return _encode("dgt_rans_encode_rows", "rans_encode_rows", x32, sizes,
+                   packed, magic, prob_bits, classic=False)
+
+
+def encode_blocks(x32, sizes, packed, magic, prob_bits: int):
+    """K2 launch, classic layout; arguments as
+    ``ops.rans_encode.encode_blocks``."""
+    return _encode("dgt_rans_encode_blocks", "rans_encode_blocks", x32, sizes,
+                   packed, magic, prob_bits, classic=True)
 
 
 def runs_merge(srcs: Sequence[torch.Tensor], dst, ref, off, lens, out_len: int):
@@ -234,30 +263,50 @@ def runs_merge(srcs: Sequence[torch.Tensor], dst, ref, off, lens, out_len: int):
     return out
 
 
-def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
-                  prob_bits: int, bf16: bool):
-    """K4 launch; arguments as ``ops.rans_decode.decode_join16``."""
-    _cuda_only(streams, comp_w, uncomp_w, states, lut, raw32)
-    B, NR, SW = streams.shape
+def _decode(fn: str, counter: str, streams, comp_w, uncomp_w, states, lut,
+            prob_bits: int, raw32=None, bf16: bool = False):
+    extra = () if raw32 is None else (raw32,)
+    _cuda_only(streams, comp_w, uncomp_w, states, lut, *extra)
+    B, _, SW = streams.shape
     _batch_ok(B)
     NB = comp_w.shape[1]
     dev = streams.device
-    out = torch.empty((B, NB, 2048), dtype=torch.int32, device=dev)
+    out = torch.empty((B, NB, 1024 if raw32 is None else 2048),
+                      dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
-        err = lib.dgt_rans_decode_join16(
-            streams.data_ptr(), SW, comp_w.data_ptr(), uncomp_w.data_ptr(),
-            states.data_ptr(), lut.data_ptr(), prob_bits, raw32.data_ptr(), B,
-            NB, int(bf16), out.data_ptr(), _stream(streams),
-        )
-    _check(lib, err, "rans_decode_join16")
-    launches["rans_decode_join16"] += 1
+        args = [streams.data_ptr(), SW, comp_w.data_ptr(), uncomp_w.data_ptr(),
+                states.data_ptr(), lut.data_ptr(), prob_bits]
+        if raw32 is None:
+            args += [B, NB]
+        else:
+            args += [raw32.data_ptr(), B, NB, int(bf16)]
+        err = getattr(lib, fn)(*args, out.data_ptr(), _stream(streams))
+    _check(lib, err, counter)
+    launches[counter] += 1
     return out
+
+
+def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
+                  prob_bits: int, bf16: bool):
+    """K4 launch, row layout; arguments as ``ops.rans_decode.decode_join16``."""
+    return _decode("dgt_rans_decode_join16", "rans_decode_join16", streams,
+                   comp_w, uncomp_w, states, lut, prob_bits, raw32, bf16)
+
+
+def decode_join16_blocks(streams, comp_w, uncomp_w, states, lut, raw32,
+                         prob_bits: int, bf16: bool):
+    """K4 launch, classic layout; arguments as
+    ``ops.rans_decode.decode_join16_blocks``."""
+    return _decode("dgt_rans_decode_join16_blocks", "rans_decode_join16_blocks",
+                   streams, comp_w, uncomp_w, states, lut, prob_bits, raw32,
+                   bf16)
 
 
 def _aligned(t: torch.Tensor, nbytes: int, name: str) -> None:
     """Each row of t must start on an nbytes boundary (vector accesses)."""
-    if t.data_ptr() % nbytes or (t.shape[0] > 1 and (4 * t.stride(0)) % nbytes):
+    row_bytes = t.element_size() * t.stride(0)
+    if t.data_ptr() % nbytes or (t.shape[0] > 1 and row_bytes % nbytes):
         raise ValueError(f"{name} rows must start on {nbytes} B boundaries")
 
 
@@ -288,23 +337,16 @@ def split_wide_hist(data32: torch.Tensor, n: torch.Tensor, float_type):
 
 
 def decode_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
-    """K6 launch; arguments as ``ops.rans_decode.decode_rows``."""
-    _cuda_only(streams, comp_w, uncomp_w, states, lut)
-    B, NR, SW = streams.shape
-    _batch_ok(B)
-    NB = comp_w.shape[1]
-    dev = streams.device
-    out = torch.empty((B, NB, 1024), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_rans_decode_rows(
-            streams.data_ptr(), SW, comp_w.data_ptr(), uncomp_w.data_ptr(),
-            states.data_ptr(), lut.data_ptr(), prob_bits, B, NB,
-            out.data_ptr(), _stream(streams),
-        )
-    _check(lib, err, "rans_decode_rows")
-    launches["rans_decode_rows"] += 1
-    return out
+    """K6 launch, row layout; arguments as ``ops.rans_decode.decode_rows``."""
+    return _decode("dgt_rans_decode_rows", "rans_decode_rows", streams, comp_w,
+                   uncomp_w, states, lut, prob_bits)
+
+
+def decode_blocks(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
+    """K6 launch, classic layout; arguments as
+    ``ops.rans_decode.decode_blocks``."""
+    return _decode("dgt_rans_decode_blocks", "rans_decode_blocks", streams,
+                   comp_w, uncomp_w, states, lut, prob_bits)
 
 
 def join_wide(planes, sec1, sec2, float_type):
@@ -328,3 +370,24 @@ def join_wide(planes, sec1, sec2, float_type):
     _check(lib, err, "join_wide")
     launches["join_wide"] += 1
     return out
+
+
+def byte_hist(rows: torch.Tensor, sizes: torch.Tensor):
+    """K8 launch; arguments as ``ops.histogram.byte_hist``, with rows
+    16 B aligned and of a 16 B multiple, and sizes int32 in [0, S]."""
+    _cuda_only(rows, sizes)
+    B, S = rows.shape
+    _batch_ok(B)
+    _aligned(rows, 16, "rows")
+    if S % 16:
+        raise ValueError("rows must hold a multiple of 16 bytes")
+    dev = rows.device
+    hist = torch.zeros((B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    csum = torch.zeros((B,), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_byte_hist(rows.data_ptr(), B, S, sizes.data_ptr(),
+                                hist.data_ptr(), csum.data_ptr(), _stream(rows))
+    _check(lib, err, "byte_hist")
+    launches["byte_hist"] += 1
+    return hist, csum

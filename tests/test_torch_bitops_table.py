@@ -9,6 +9,7 @@ from dietgpu_fork_tpu.ops import bitops as JB
 from dietgpu_fork_tpu.ops import table as JT
 from dietgpu_fork_torch.ops import bitops as TB
 from dietgpu_fork_torch.ops import table as TT
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 EDGES = np.array(
     [0, 1, 2, 3, 0x7FFF, 0x8000, 0xFFFF, 0x10000, 0x7FFFFFFF, 0x80000000,

@@ -20,6 +20,7 @@ from dietgpu_fork_torch.ops.float_split import join16, unpack_bytes
 from dietgpu_fork_torch.ops.table import build_decode_table_batched
 from tests.conftest import make_exponential_bytes
 from tests.test_torch_rans import NB, SIZES, _encode_inputs
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _decode_inputs(case, pb):

@@ -19,6 +19,7 @@ from dietgpu_fork_torch.core.constants import FLOAT_ALIGN_MIN, FloatType
 from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
 from dietgpu_fork_torch.models import float_codec as TF
 from tests.conftest import make_float_words
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 FT16 = [JFT.BFLOAT16, JFT.FLOAT16]
 SIZES = [0, 1, 4095, 4096, 4097, 5 * 4096 + 3]
@@ -208,15 +209,20 @@ def test_corrupt_archive_fails_without_raising(rng, how):
 
 
 def test_unported_options_raise():
+    """The classic layout and verify_checksum are ported; the sparse codec
+    is the option left, and the API refuses it."""
+    from dietgpu_fork_torch.api import codec as C
+
     d = torch.zeros((1, 8), dtype=torch.int32)
     n = torch.tensor([4], dtype=torch.int32)
+    for ft in (FloatType.FLOAT32, FloatType.BFLOAT16):
+        out, cb = TF.float_compress_core(d, n, ft, native=False)
+        assert int(rows_to_numpy(out)[0, 0]) == (0xF00F << 16) | 1
+        w, s, _, ca, cg = TF.float_decompress_core(
+            out, torch.zeros(1), 4, ft, verify_checksum=True, native=False)
+        assert bool(s[0]) and torch.equal(ca, cg) and not w.any()
     with pytest.raises(NotImplementedError):
-        TF.float_compress_core(d, n, FloatType.FLOAT32, native=False)
-    with pytest.raises(NotImplementedError):
-        TF.float_compress_core(d, n, FloatType.BFLOAT16, native=False)
-    with pytest.raises(NotImplementedError):
-        TF.float_decompress_core(d, torch.zeros(1), 4, FloatType.BFLOAT16,
-                                 verify_checksum=True)
+        C.compress_data(True, [torch.zeros(4)], sparse=True)
 
 
 @pytest.mark.parametrize("n", [-1, 17])

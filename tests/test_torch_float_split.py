@@ -12,6 +12,7 @@ from dietgpu_fork_tpu.ops import float_split as JS
 from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
 from dietgpu_fork_torch.ops import float_split as TS
 from dietgpu_fork_torch.ops.bitops import to_u32
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 CASES = [
     (64, [0, 1, 7, 128]),

@@ -26,6 +26,7 @@ from tests.test_torch_float_codec import (
     port_compress,
     port_decompress,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 WIDE = [JFT.FLOAT32, JFT.FLOAT64]
 

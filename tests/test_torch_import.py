@@ -12,7 +12,14 @@ import torch
 
 import dietgpu_fork_tpu.core.constants as J
 import dietgpu_fork_torch.core.constants as T
-from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
+from dietgpu_fork_torch.core.interop import (
+    bytes_from_numpy,
+    bytes_to_numpy,
+    floats_from_words,
+    rows_from_numpy,
+    rows_to_numpy,
+)
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
@@ -29,6 +36,8 @@ def test_import_leaves_jax_out():
         "import dietgpu_fork_torch.models.float_codec\n"
         "import dietgpu_fork_torch.runtime.cuda_kernels\n"
         "import dietgpu_fork_torch.core.interop\n"
+        "import dietgpu_fork_torch.api.codec\n"
+        "import dietgpu_fork_torch.runtime.stack_memory\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dietgpu_fork_tpu')]\n"
@@ -101,7 +110,8 @@ def test_size_functions_equal_jax(size):
 @pytest.mark.parametrize(
     "wrapper",
     ["split16_hist", "encode_rows", "runs_merge", "decode_join16",
-     "split_wide_hist", "decode_rows", "join_wide"],
+     "split_wide_hist", "decode_rows", "join_wide", "byte_hist",
+     "encode_blocks", "decode_blocks", "decode_join16_blocks"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper never runs, builds or falls back on a CPU tensor."""
@@ -117,10 +127,28 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "split_wide_hist": (t, t[0, :1], T.FloatType.FLOAT32),
         "decode_rows": (t[None], t, t, t, t, 10),
         "join_wide": ([t], t, t, T.FloatType.FLOAT32),
+        "byte_hist": (t.view(torch.uint8), t[0, :1]),
+        "encode_blocks": (t, t[0, :1], t[:, :256], t[:, :256], 10),
+        "decode_blocks": (t[None], t, t, t, t, 10),
+        "decode_join16_blocks": (t[None], t, t, t, t, t, 10, True),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(K, wrapper)(*args)
     assert K._lib is None
+
+
+def test_every_source_is_built_and_counted():
+    """K8 and each kernel source is in the build, and each layout of K2, K4
+    and K6 has its own launch counter."""
+    from dietgpu_fork_torch.runtime import cuda_kernels as K
+
+    on_disk = sorted(p.name for p in K.CSRC.glob("*.cu"))
+    assert sorted(K.SOURCES) == on_disk and "byte_hist.cu" in K.SOURCES
+    assert {"byte_hist", "rans_encode_blocks", "rans_decode_blocks",
+            "rans_decode_join16_blocks"} <= set(K.launches)
+    K.launches["byte_hist"] = 3
+    K.reset_launches()
+    assert not any(K.launches.values())
 
 
 def test_interop_is_bit_exact():
@@ -135,3 +163,23 @@ def test_interop_is_bit_exact():
         rows_from_numpy(a.astype(np.int64))
     with pytest.raises(TypeError):
         rows_to_numpy(t.to(torch.int64))
+
+
+@pytest.mark.parametrize(
+    "words,dtype",
+    [(np.array([0x3F80, 0xBF80, 0x7FC1], np.uint16), torch.bfloat16),
+     (np.array([0x3C00, 0xFC00], np.uint16), torch.float16),
+     (np.array([0x3F800000, 0x80000001], np.uint32), torch.float32),
+     (np.array([0x3FF0000000000000, 0xFFF8000000000001], np.uint64),
+      torch.float64)],
+)
+def test_float_and_byte_interop_is_bit_exact(words, dtype):
+    t = floats_from_words(words, dtype)
+    assert t.dtype == dtype and t.shape == words.shape
+    b = t.view(torch.uint8)
+    assert np.array_equal(bytes_to_numpy(b), words.view(np.uint8))
+    assert torch.equal(bytes_from_numpy(words.view(np.uint8)), b)
+    with pytest.raises(TypeError):
+        bytes_from_numpy(words)
+    with pytest.raises(TypeError):
+        bytes_to_numpy(t)

@@ -16,6 +16,7 @@ from dietgpu_fork_torch.core.constants import FloatType
 from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
 from dietgpu_fork_torch.models import float_codec as TF
 from tests.conftest import make_float_words
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_archive_equals_jax_pallas_path(rng, monkeypatch):

@@ -19,6 +19,7 @@ from dietgpu_fork_tpu.models import float_codec as JF
 from dietgpu_fork_torch.core.constants import FloatType
 from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
 from dietgpu_fork_torch.models import float_codec as TF
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 N = 9000
 WIDE = [FloatType.FLOAT32, FloatType.FLOAT64]

@@ -8,6 +8,7 @@ import torch
 
 from dietgpu_fork_tpu.ops.pallas.merge import _RSH, _runs_merge_ref
 from dietgpu_fork_torch.ops import merge as TM
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _srcs(seed, sizes):

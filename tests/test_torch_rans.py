@@ -23,6 +23,7 @@ from dietgpu_fork_torch.ops.table import (
     pack_encode_table,
 )
 from tests.conftest import make_exponential_bytes
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 NB = 6  # a full row and a partial one
 SIZES = {

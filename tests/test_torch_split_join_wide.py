@@ -14,6 +14,7 @@ from dietgpu_fork_tpu.ops import float_split as JS
 from dietgpu_fork_torch.core.constants import FloatType
 from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
 from dietgpu_fork_torch.ops import float_split as TS
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 WIDE = [JFT.FLOAT32, JFT.FLOAT64]
 # (row words, float counts): whole groups, partial words, empty members
