@@ -4,13 +4,15 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the eight CUDA kernels from
+   versions, and builds the eleven CUDA kernels from
    ``dietgpu_fork_torch/csrc`` (nvcc, sm_90a, one process per source),
    printing the build time;
 2. drives each main path once with every kernel wrapper recording its
    calls, then holds each kernel and mode against its plain PyTorch
    version on the recorded inputs (the main path's own shapes), bit for
-   bit, and times both with CUDA events;
+   bit, and times both with CUDA events, beside the kernel's bound (the
+   bytes its calls must move at 3.35 TB/s) and, where one PyTorch call
+   computes the same function, that call's time;
 3. drives the main paths, each with the launch counters reset just before
    and read just after, and checks the round trip, the archive against the
    all-plain path's archive, cross-decoding both ways, and that every
@@ -23,19 +25,30 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      whose archive must equal ``float_compress_core``'s;
    - B: raw ANS through the API on the same 32 MiB as bytes, checksum on;
    - C: A and B in the classic 0xD00D layout, and fp32 classic;
+   - S: the sparse float codec through the API (``sparse=True``) at the
+     reference sparse benchmark's largest cell, 5 x 15,000,000 floats, half
+     of them exact zeros over N(0,1), prob_bits 9, checksum on, default
+     layout, in bf16, fp32 and fp64;
 4. links the port to the JAX reference without JAX: the archive of a fixed
    v2-container input of each type must hash to its ``GOLDEN_V2_SHA256``
-   entry, and a classic bf16 and a classic raw-ANS archive to their
-   ``GOLDEN_SHA256`` entries; the CPU tests hold each equal to the NumPy
-   oracle's archive;
+   entry, a classic bf16 and a classic raw-ANS archive to their
+   ``GOLDEN_SHA256`` entries, and two sparse archives (fp32 native with a
+   v2 dense part, bf16 classic) to their ``GOLDEN_SPARSE_SHA256`` entries;
+   the CPU tests hold each equal to the NumPy oracle's archive;
 5. round-trips a ragged bf16 batch of 128 members and ragged fp32 and
    fp64 batches of 64 members, each of up to 128Ki floats; then D, the
    reference's large batch, 128 x 512Ki bf16 through the API; E, the
    split-size API on one 16Mi bf16 tensor in ragged members, back to one
    contiguous CUDA tensor; F, a flipped raw byte in A's archive, which
    ``decompress_data(..., checksum=True)`` must refuse with RuntimeError;
+   then, for the sparse codec, one classic fp32 member of 4Mi floats at 90%
+   zeros and a ragged batch of 64 bf16 members, each against the all-plain
+   archive and round-tripped;
 6. times compress and decompress of each main path (3 warm-ups, median of
    10) on the kernel path, and the all-plain path (median of 3).
+
+``python3 chip_smoke.py --profile`` instead profiles each main path's
+compress and decompress (``profile_paths``) and prints no result.
 
 It exits non-zero, printing no result, when CUDA is not available or any
 phase fails. The line before the last is a JSON object with one entry per
@@ -46,6 +59,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -67,6 +81,12 @@ from dietgpu_fork_torch.models.float_codec import (
     float_compress_padded,
     float_decompress_core,
 )
+from dietgpu_fork_torch.models.sparse import (
+    sparse_float_compress_core,
+    sparse_float_compress_padded,
+    sparse_float_decompress_core,
+)
+from dietgpu_fork_torch.ops.bitmap_pack import bitmap_words, pack_bitmap_plain
 from dietgpu_fork_torch.ops.float_split import (
     join_wide_plain,
     split16_hist_plain,
@@ -81,6 +101,11 @@ from dietgpu_fork_torch.ops.rans_decode import (
     decode_rows_plain,
 )
 from dietgpu_fork_torch.ops.rans_encode import encode_blocks_plain, encode_rows_plain
+from dietgpu_fork_torch.ops.sparse_stream import (
+    _unpack_bits,
+    compact_by_bitmap_plain,
+    expand_by_bitmap_plain,
+)
 from dietgpu_fork_torch.runtime import cuda_kernels as K
 
 BF16, FP32, FP64 = FloatType.BFLOAT16, FloatType.FLOAT32, FloatType.FLOAT64
@@ -102,8 +127,25 @@ GOLDEN_SHA256 = {
     "bf16_classic": "3da3fe253d879977414b663fa9550514d037eacf3bb494d140c4b6510bd16ec9",
     "raw_classic": "6346a842581fe1b56a5208729aaef57ab36c2e45f852b45709ce10e2428de17d",
 }
+# sha256 of the sparse archives (their first comp_bytes bytes) of
+# golden_sparse_input(key), prob_bits 10: fp32 native, whose nnz >= 2^20
+# nonzero floats make the dense part a v2 container, and bf16 classic.
+# tests/test_torch_sparse.py holds each equal to the NumPy oracle's
+# archive and to the port's plain path.
+GOLDEN_SPARSE_SHA256 = {
+    "fp32_native": "0e6f4d2491532667839e5c5aca9e6782a2a22fd43d9e2d4b597e66015c5569ed",
+    "bf16_classic": "8cd5c7421b41fb7e44482fe76beea3617dad32d249439a0f088b767a79d68a81",
+}
+# key: (float type, native, n, share of zeros)
+GOLDEN_SPARSE = {
+    "fp32_native": (FP32, True, 1_250_000, 0.1),
+    "bf16_classic": (BF16, False, (1 << 20) + 4097, 0.5),
+}
 GOLDEN_N = (1 << 20) + 4097
 MAIN_N = 1 << 24
+# phase S: the reference sparse benchmark's largest cell
+# (bench/sparse_float_benchmark.py:4-6,42-53,136-138,158)
+S_COUNT, S_N, S_ZEROS, S_PROB_BITS = 5, 15_000_000, 0.5, 9
 D_COUNT, D_N = 128, 1 << 19  # phase D: the reference's large batch
 PROB_BITS = 10
 _WORD_DTYPE = {BF16: np.uint16, FP32: np.uint32, FP64: np.uint64}
@@ -113,6 +155,8 @@ _TORCH_DTYPE = {BF16: torch.bfloat16, FP32: torch.float32, FP64: torch.float64}
 P_BF16, P_FP32, P_FP64 = BF16.name, FP32.name, FP64.name
 P_A, P_B = "A:api-bf16", "B:api-raw"
 P_CF, P_CR, P_C32 = "C:api-bf16-classic", "C:api-raw-classic", "C:api-fp32-classic"
+P_S16, P_S32, P_S64 = "S:api-sparse-bf16", "S:api-sparse-fp32", "S:api-sparse-fp64"
+P_S = (P_S16, P_S32, P_S64)
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -120,30 +164,33 @@ P_CF, P_CR, P_C32 = "C:api-bf16-classic", "C:api-raw-classic", "C:api-fp32-class
 KERNELS = [
     ("split16_hist", "split16_hist", split16_hist_plain,
      "dietgpu_fork_torch/csrc/split16_hist.cu",
-     ("ops/pallas/float_split_fused.py:265",), (P_BF16, P_A, P_CF)),
+     ("ops/pallas/float_split_fused.py:265",), (P_BF16, P_A, P_CF, P_S16)),
     ("encode_rows", "rans_encode_rows", encode_rows_plain,
      "dietgpu_fork_torch/csrc/rans_encode_rows.cu",
      ("ops/pallas/rans_encode_fused.py:114",
       "ops/pallas/rans_encode_fused.py:420"),
-     (P_BF16, P_FP32, P_FP64, P_A, P_B)),
+     (P_BF16, P_FP32, P_FP64, P_A, P_B) + P_S),
     ("runs_merge", "runs_merge", runs_merge_plain,
      "dietgpu_fork_torch/csrc/runs_merge.cu",
      ("ops/pallas/merge.py:305",),
-     (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32)),
+     (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S),
     ("decode_join16", "rans_decode_join16", decode_join16_plain,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
-     ("ops/pallas/rans_decode_fused2.py:104",), (P_BF16, P_A)),
+     ("ops/pallas/rans_decode_fused2.py:104",), (P_BF16, P_A, P_S16)),
     ("split_wide_hist", "split_wide_hist", split_wide_hist_plain,
      "dietgpu_fork_torch/csrc/split_wide_hist.cu",
      ("ops/pallas/float_split_fused.py:291",
-      "ops/pallas/float_split_fused.py:305"), (P_FP32, P_FP64, P_C32)),
+      "ops/pallas/float_split_fused.py:305"),
+     (P_FP32, P_FP64, P_C32, P_S32, P_S64)),
     ("decode_rows", "rans_decode_rows", decode_rows_plain,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
-     ("ops/pallas/rans_decode_fused2.py:104",), (P_FP32, P_FP64, P_B)),
+     ("ops/pallas/rans_decode_fused2.py:104",),
+     (P_FP32, P_FP64, P_B, P_S32, P_S64)),
     ("join_wide", "join_wide", join_wide_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
-      "ops/pallas/float_split_fused.py:412"), (P_FP32, P_FP64, P_C32)),
+      "ops/pallas/float_split_fused.py:412"),
+     (P_FP32, P_FP64, P_C32, P_S32, P_S64)),
     ("byte_hist", "byte_hist", byte_hist_plain,
      "dietgpu_fork_torch/csrc/byte_hist.cu",
      ("ops/pallas/histogram_mxu.py:113", "ops/pallas/histogram_mxu.py:93"),
@@ -158,7 +205,96 @@ KERNELS = [
     ("decode_join16_blocks", "rans_decode_join16_blocks",
      decode_join16_blocks_plain, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_CF,)),
+    ("pack_bitmap", "bitmap_pack", pack_bitmap_plain,
+     "dietgpu_fork_torch/csrc/bitmap_pack.cu",
+     ("ops/pallas/bitmap_pack.py:36", "ops/pallas/bitmap_pack.py:62",
+      "ops/pallas/bitmap_pack.py:84"), P_S),
+    ("compact_by_bitmap", "sparse_compact", compact_by_bitmap_plain,
+     "dietgpu_fork_torch/csrc/sparse_compact.cu",
+     ("ops/pallas/sparse_stream.py:175", "ops/pallas/sparse_stream.py:356"),
+     P_S),
+    ("expand_by_bitmap", "sparse_expand", expand_by_bitmap_plain,
+     "dietgpu_fork_torch/csrc/sparse_expand.cu",
+     ("ops/pallas/sparse_stream.py:60",), P_S),
 ]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(t) for t in x)
+    return 0
+
+
+def _ws(ft) -> int:
+    return FLOAT_WORD_SIZE[FloatType(ft)]
+
+
+def _nnz(ranks) -> int:
+    return int(ranks[:, -1].sum())
+
+
+# the bytes of the one input whose use depends on the data, as (argument
+# index, the bytes that the call's data needs of it)
+_DATA_INPUT = {
+    "split16_hist": (0, lambda a: 2 * int(a[1].sum())),
+    "encode_rows": (0, lambda a: int(a[1].sum())),
+    "encode_blocks": (0, lambda a: int(a[1].sum())),
+    "runs_merge": (0, lambda a: 4 * int(a[4].sum())),
+    "decode_join16": (0, lambda a: 2 * int(a[1].sum())),
+    "decode_join16_blocks": (0, lambda a: 2 * int(a[1].sum())),
+    "decode_rows": (0, lambda a: 2 * int(a[1].sum())),
+    "decode_blocks": (0, lambda a: 2 * int(a[1].sum())),
+    "split_wide_hist": (0, lambda a: _ws(a[2]) * int(a[1].sum())),
+    "byte_hist": (0, lambda a: int(a[1].sum())),
+    "pack_bitmap": (0, lambda a: _ws(a[2]) * int(a[1].sum())),
+    "compact_by_bitmap": (0, lambda a: _ws(a[3]) * _nnz(a[2])),
+    "expand_by_bitmap": (0, lambda a: _ws(a[5]) * _nnz(a[2])),
+}
+
+
+def bound_ms(wname: str, args, out) -> float:
+    """The least time of one call on an H100: each input read once and each
+    output written once at device-memory rate, counting of the input whose
+    use depends on the data only what this call's data needs (floats below
+    n, nonzero floats, coded words, bytes of the runs copied)."""
+    nbytes = _nbytes(args) + _nbytes(out)
+    if wname in _DATA_INPUT:
+        i, need = _DATA_INPUT[wname]
+        nbytes += need(args) - _nbytes(args[i])
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _typed_rows(rows32: torch.Tensor, ft) -> torch.Tensor:
+    return rows32.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[_ws(ft)])
+
+
+def library_call(wname: str, args):
+    """One PyTorch call computing the kernel's function on the recorded
+    inputs, set up outside the timing, or None where there is none."""
+    if wname == "byte_hist":
+        rows, sizes = args
+        one = [rows[b, : int(s)] for b, s in enumerate(sizes.tolist())]
+        return lambda: [torch.bincount(r, minlength=256) for r in one]
+    if wname == "compact_by_bitmap":
+        data32, bm32, _, ft = args
+        s_cap = 4 * data32.shape[1] // _ws(ft)
+        items = _typed_rows(data32, ft)[:, :s_cap]
+        mask = _unpack_bits(bm32, s_cap)
+        return lambda: torch.masked_select(items, mask)
+    if wname == "expand_by_bitmap":
+        nz32, bm32, ranks, n, out_floats, ft = args
+        slots = 4 * (-(-out_floats * _ws(ft) // 4)) // _ws(ft)
+        pos = torch.arange(slots, device=n.device)[None, :]
+        mask = _unpack_bits(bm32, slots) & (pos < n[:, None])
+        items = _typed_rows(nz32, ft)
+        src = torch.cat([items[b, : int(c)] for b, c in
+                         enumerate(mask.sum(dim=1).tolist())])
+        return lambda: torch.zeros(mask.shape, dtype=items.dtype,
+                                   device=n.device).masked_scatter_(mask, src)
+    return None
 
 
 def float_words(seed: int, n: int, ft: FloatType = BF16) -> np.ndarray:
@@ -370,6 +506,68 @@ class ApiRawPath:
         return ok and torch.equal(out, self.x)
 
 
+def golden_sparse_input(key: str):
+    """The input of GOLDEN_SPARSE_SHA256[key]: (float type, native, float
+    words with the key's share of exact zeros)."""
+    ft, native, n, zeros = GOLDEN_SPARSE[key]
+    w = float_words(3, n, ft)
+    w[np.random.default_rng(4).random(n) < zeros] = 0
+    return ft, native, w
+
+
+class ApiSparsePath:
+    """S: S_COUNT members of S_N N(0,1) floats of one type, a S_ZEROS share
+    of them exact zeros, through ``compress_data`` / ``decompress_data``
+    with sparse=True, prob_bits 9, the checksum on and the default layout
+    (native on the card). The data is made on the card from a seed.
+    plain=True runs the model functions the API calls, all plain, on the
+    same rows."""
+
+    def __init__(self, name, ft: FloatType, dev):
+        self.name, self.ft = name, ft
+        self.layout = dev.type == "cuda"  # the API's default layout
+        self.raw_bytes = FLOAT_WORD_SIZE[ft] * S_N * S_COUNT
+        g = torch.Generator(device=dev)
+        g.manual_seed(int(ft))
+        x = torch.randn((S_COUNT, S_N), generator=g, device=dev,
+                        dtype=torch.float64)
+        x[torch.rand((S_COUNT, S_N), generator=g, device=dev) < S_ZEROS] = 0
+        x = x.to(_TORCH_DTYPE[ft])
+        self.xs = list(x.unbind(0))
+        self.d = x.view(torch.uint8).view(torch.int32)
+        self.n = torch.full((S_COUNT,), S_N, dtype=torch.int32, device=dev)
+
+    def compress(self, plain=False):
+        if plain:
+            return sparse_float_compress_padded(
+                self.d, self.n, self.ft, S_PROB_BITS, True, native=self.layout,
+                plain=True)
+        comp, comp_bytes, _ = C.compress_data(
+            True, self.xs, checksum=True, prob_bits=S_PROB_BITS, sparse=True)
+        return comp, comp_bytes
+
+    def decompress(self, comp, plain=False):
+        """-> (decoded tensors, success and checksum agreement)."""
+        dt = _TORCH_DTYPE[self.ft]
+        if plain:
+            w, s, _, ca, cg = sparse_float_decompress_core(
+                comp.view(torch.int32), S_N, self.ft, S_PROB_BITS,
+                verify_checksum=True, native=self.layout, plain=True)
+            nb = FLOAT_WORD_SIZE[self.ft] * S_N
+            outs = list(w.view(torch.uint8)[:, :nb].contiguous().view(dt))
+            return outs, bool(s.all()) and torch.equal(ca, cg)
+        outs, _, success, status, _ = C.decompress_data(
+            True, comp, [S_N] * S_COUNT, dt, checksum=True,
+            prob_bits=S_PROB_BITS, sparse=True)
+        return outs, bool(success.all()) and status.ok
+
+    def round_trip_ok(self, res) -> bool:
+        outs, ok = res
+        return ok and all(
+            o.dtype == x.dtype and torch.equal(o.view(torch.uint8), x.view(torch.uint8))
+            for o, x in zip(outs, self.xs))
+
+
 def ragged_batch(ft, count, seed, dev):
     """A ragged batch of up to 128Ki floats per member, sizes 0, 1, 4097
     and 128Ki among them: compress on both paths, decode, check."""
@@ -452,6 +650,87 @@ def phase_e(dev):
           "CUDA tensor")
 
 
+def golden_sparse(dev):
+    """The GOLDEN_SPARSE_SHA256 archives through sparse_float_compress_core
+    on the card, each round-tripped."""
+    for key, want in GOLDEN_SPARSE_SHA256.items():
+        ft, native, w = golden_sparse_input(key)
+        rows = rows_from_numpy(pack_rows([w], w.size), dev)
+        n = torch.tensor([w.size], dtype=torch.int32, device=dev)
+        out, cb = sparse_float_compress_core(rows, n, ft, PROB_BITS,
+                                             native=native)
+        digest = archive_sha256(out[0], int(cb[0]))
+        check(digest == want, f"{key} golden sparse archive sha256 {digest}")
+        dense0 = int(out[0, 4 + bitmap_words(w.size)]) & 0xFFFFFFFF
+        ww, ws_, _, _, _ = sparse_float_decompress_core(
+            out, w.size, ft, PROB_BITS, native=native)
+        check(bool(ws_[0]) and torch.equal(ww[:, : rows.shape[1]], rows),
+              f"{key} golden sparse round trip")
+        print(f"{key} golden sparse archive: {int(cb[0])} bytes, dense "
+              f"header {dense0:#010x}, sha256 matches")
+
+
+def phase_sparse_classic(dev):
+    """One fp32 member of 4Mi floats at 90% zeros in the classic layout:
+    the kernel archive against the all-plain archive, the round trip and
+    cross-decoding."""
+    n = 1 << 22
+    w = float_words(11, n, FP32)
+    w[np.random.default_rng(12).random(n) < 0.9] = 0
+    rows = rows_from_numpy(pack_rows([w], n), dev)
+    nt = torch.tensor([n], dtype=torch.int32, device=dev)
+    out, cb = sparse_float_compress_core(rows, nt, FP32, PROB_BITS, native=False)
+    p_out, p_cb = sparse_float_compress_core(rows, nt, FP32, PROB_BITS,
+                                             native=False, plain=True)
+    check(torch.equal(out, p_out) and torch.equal(cb, p_cb),
+          "classic sparse archive equals the all-plain archive")
+    check(not C.detect_native_layout(True, out.view(torch.uint8), sparse=True,
+                                     float_type=FP32),
+          "classic sparse archive is classic")
+    for arc, plain in ((out, True), (p_out, False)):
+        ww, ok, _, _, _ = sparse_float_decompress_core(
+            arc, n, FP32, PROB_BITS, native=False, plain=plain)
+        check(bool(ok[0]) and torch.equal(ww, rows),
+              f"classic sparse round trip with plain={plain}")
+    print(f"classic sparse fp32 {n} floats at 90% zeros: ratio "
+          f"{int(cb[0]) / (4 * n):.6f}, archive == plain, exact both ways")
+
+
+def ragged_sparse_batch(dev):
+    """64 bf16 members of up to 128Ki floats, sizes 0, 1, 4097 and 128Ki
+    and shares of zeros 0, 0.5 and 1 among them: the archive against the
+    all-plain archive, the round trip, and the API's per-member offsets
+    (compress_data_simple / decompress_data_simple)."""
+    cap, count = 1 << 17, 64
+    rng = np.random.default_rng(21)
+    sizes = rng.integers(0, cap, count)
+    sizes[:4] = [0, 1, 4097, cap]
+    zeros = rng.choice([0.0, 0.5, 0.9, 1.0], count)
+    zeros[:6] = [0.5, 0.0, 1.0, 0.5, 0.0, 1.0]
+    ws = []
+    for i, (s, z) in enumerate(zip(sizes, zeros)):
+        w = float_words(22 + i, int(s), BF16)
+        w[rng.random(int(s)) < z] = 0
+        ws.append(w)
+    rows = rows_from_numpy(pack_rows(ws, cap), dev)
+    n = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    out, cb = sparse_float_compress_core(rows, n, BF16, PROB_BITS)
+    p_out, p_cb = sparse_float_compress_core(rows, n, BF16, PROB_BITS, plain=True)
+    check(torch.equal(out, p_out) and torch.equal(cb, p_cb),
+          "ragged sparse archive equals the all-plain archive")
+    ww, ok, nn, _, _ = sparse_float_decompress_core(out, cap, BF16, PROB_BITS)
+    check(bool(ok.all()) and torch.equal(nn.cpu(), torch.from_numpy(sizes))
+          and torch.equal(ww, rows), "ragged sparse round trip")
+    xs = [floats_from_words(w, torch.bfloat16, dev) for w in ws]
+    outs = C.decompress_data_simple(
+        True, C.compress_data_simple(True, xs, sparse=True), sparse=True)
+    check(all(torch.equal(o.view(torch.int16), x.view(torch.int16))
+              for o, x in zip(outs, xs)), "ragged sparse API round trip")
+    raw = 2 * int(sizes.sum())
+    print(f"ragged sparse bf16 batch: {count} members, {int(sizes.sum())} "
+          f"floats, ratio {int(cb.sum()) / raw:.6f}, exact, archive == plain")
+
+
 def phase_f(comp: torch.Tensor):
     """F: a flipped byte of the raw section of A's archive must make
     decompress_data(..., checksum=True) raise RuntimeError."""
@@ -465,6 +744,59 @@ def phase_f(comp: torch.Tensor):
         return
     raise RuntimeError("check failed: F: a corrupted archive decoded without "
                        "a checksum error")
+
+
+def profile_paths(paths, card: str) -> None:
+    """``--profile``: for each main path's compress and decompress, the
+    host-clock median of 10 calls ending in a synchronise, and from a
+    torch.profiler trace of 5 calls after 3 warm-ups the device busy time
+    (kernels, copies and fills), the idle share (1 - busy / host), the
+    host's kernel launches, the device's operations and the six device
+    operations that take the most time, each per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = K.BUILD_DIR / f"profile.{os.getpid()}.json"
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    print(f"profile ({card}): path, call, host ms, device busy ms, idle "
+          "share, host launches, device ops")
+    for mp in paths:
+        arc = mp.compress()[0]
+        for what, fn in (("compress", mp.compress),
+                         ("decompress", lambda: mp.decompress(arc))):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+            trace.unlink()
+            dev = [e for e in events if e.get("ph") == "X" and e.get("cat")
+                   in ("kernel", "gpu_memcpy", "gpu_memset")]
+            launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                        and "LaunchKernel" in e.get("name", "")]
+            h_ms = statistics.median(host)
+            busy = sum(e["dur"] for e in dev) / 5 / 1e3
+            print(f"profile {mp.name} {what}: host {h_ms:.3f} ms, device busy "
+                  f"{busy:.3f} ms, idle share {1 - busy / h_ms:.3f}, host "
+                  f"launches {len(launches) / 5:.0f}, device ops "
+                  f"{len(dev) / 5:.0f}")
+            by_name = {}
+            for e in dev:
+                by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            print("  top: " + "; ".join(f"{name[:70]} {us / 5 / 1e3:.3f} ms"
+                                        for name, us in top))
+        del arc
 
 
 def main() -> int:
@@ -489,14 +821,19 @@ def main() -> int:
         ApiFloatPath(P_CF, BF16, False, dev),
         ApiRawPath(P_CR, False, dev),
         ApiFloatPath(P_C32, FP32, False, dev),
-    ]
+    ] + [ApiSparsePath(name, ft, dev) for name, ft in zip(P_S, (BF16, FP32, FP64))]
+    if "--profile" in sys.argv[1:]:
+        profile_paths(paths, card)
+        return 0
 
     # 2. every kernel and mode against its plain version at each main
     # path's shapes
     report = {w: {"name": w, "route": "cuda", "source": source,
-                  "replaces": replaces[0], "max_abs_err": 0, "ms": 0.0,
-                  "plain_ms": 0.0, "ms_by_path": {}, "plain_ms_by_path": {},
-                  "launches_by_path": {}}
+                  "replaces": replaces[0], "launches": 0, "max_abs_err": 0,
+                  "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                  "bound_by": "bytes", "library_ms": None, "ms_by_path": {},
+                  "plain_ms_by_path": {}, "bound_ms_by_path": {},
+                  "library_ms_by_path": {}, "launches_by_path": {}}
               for w, _, _, source, replaces, _ in KERNELS}
     for w, _, _, _, replaces, _ in KERNELS:
         if len(replaces) > 1:
@@ -519,14 +856,26 @@ def main() -> int:
                      for a, _ in calls[wname])
             plain_ms = sum(cuda_ms(lambda a=a: plain_fn(*a), 1, 3)
                            for a, _ in calls[wname])
+            b_ms = sum(bound_ms(wname, a, out) for a, out in calls[wname])
+            libs = [library_call(wname, a) for a, _ in calls[wname]]
+            lib_ms = (None if libs[0] is None
+                      else sum(cuda_ms(f, 3, 10) for f in libs))
+            del libs
             print(f"{wname} [{mp.name}]: {len(calls[wname])} call(s), kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, max_abs_err {err}")
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms, "
+                  f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+                  f"max_abs_err {err}")
             r = report[wname]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["ms"] += ms
             r["plain_ms"] += plain_ms
+            r["bound_ms"] += b_ms
             r["ms_by_path"][mp.name] = ms
             r["plain_ms_by_path"][mp.name] = plain_ms
+            r["bound_ms_by_path"][mp.name] = b_ms
+            if lib_ms is not None:
+                r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+                r["library_ms_by_path"][mp.name] = lib_ms
         del calls
 
     # 3. the main paths, each counted on its own
@@ -543,10 +892,13 @@ def main() -> int:
             if mp.name in needs:
                 check(counts[counter] > 0,
                       f"{wname} was not launched on the {mp.name} main path")
+            else:
+                check(counts[counter] == 0,
+                      f"{wname} was launched on the {mp.name} main path")
             launches[wname] += counts[counter]
             report[wname]["launches_by_path"][mp.name] = counts[counter]
         check(mp.round_trip_ok(res), f"{mp.name} main path round trip")
-        cb = int(comp_bytes[0])
+        cb = int(comp_bytes.sum())
         print(f"{mp.name} main path: comp_bytes {cb}, ratio "
               f"{cb / mp.raw_bytes:.6f}, launches {counts}")
         p_arc, p_comp_bytes = mp.compress(plain=True)
@@ -599,6 +951,7 @@ def main() -> int:
         digest = bytes_sha256(row, nbytes)
         check(digest == GOLDEN_SHA256[key], f"{key} golden archive sha256 {digest}")
         print(f"{key} golden archive: {nbytes} bytes, sha256 matches")
+    golden_sparse(dev)
 
     # 5. ragged batches: per-member tables inside K2, K4 and K6, partial
     # groups of floats in K5 and K7; then D, E and F
@@ -608,6 +961,8 @@ def main() -> int:
     phase_d(dev, card)
     phase_e(dev)
     phase_f(a_arc)
+    phase_sparse_classic(dev)
+    ragged_sparse_batch(dev)
 
     # 6. times at the main paths
     for mp in paths:
@@ -621,7 +976,7 @@ def main() -> int:
         }
         for k, ms in t.items():
             print(f"{mp.name} {k}: {ms:.3f} ms, {gb / (ms / 1e3):.3f} GB/s "
-                  f"({mp.raw_bytes >> 20} MiB, median; {card})")
+                  f"({mp.raw_bytes / 2**20:.1f} MiB, median; {card})")
 
     print(card_line())
     print(json.dumps({"kernels": list(report.values())}))

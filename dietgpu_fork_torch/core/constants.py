@@ -45,6 +45,8 @@ DEFAULT_PROB_BITS = 10
 ANS_HEADER_BYTES = 32
 FLOAT_HEADER_BYTES = 16
 FLOAT_HEADER2_BYTES = 16
+# The sparse archive's header holds the float count only: no magic.
+SPARSE_HEADER_BYTES = 16
 
 
 class FloatType(enum.IntEnum):
@@ -130,6 +132,18 @@ def max_float_compressed_size(float_type: FloatType, size: int) -> int:
     if ft == FloatType.FLOAT64:
         base += max_compressed_size(size)
     return base
+
+
+def sparse_bitmap_bytes(size: int) -> int:
+    """Bytes of the sparse archive's bit-packed nonzero bitmap, 16 B
+    aligned (GpuSparseFloatCompress.cuh:208-222)."""
+    return round_up(div_up(size, 8), 16)
+
+
+def max_sparse_float_compressed_size(float_type: FloatType, size: int) -> int:
+    """Worst-case sparse float archive size (GpuSparseFloatCompress.cu:16-24)."""
+    return (SPARSE_HEADER_BYTES + sparse_bitmap_bytes(size)
+            + max_float_compressed_size(float_type, size))
 
 
 # Worst-case u16 words of one block's stream, and of one row of 4 blocks,

@@ -48,6 +48,7 @@ from ..core.constants import (
     max_compressed_size,
     max_float_compressed_size,
 )
+from ..ops.bitmap_pack import floats_capacity
 from ..ops.bitops import from_u32, to_i32, to_u32
 from ..ops.checksum import checksum_packed
 from ..ops.float_split import (
@@ -102,11 +103,6 @@ def _check_type(float_type) -> FloatType:
     return ft
 
 
-def _floats_capacity(W32: int, ft: FloatType) -> int:
-    """Floats that rows of W32 u32 words hold."""
-    return 4 * W32 // FLOAT_WORD_SIZE[FloatType(ft)]
-
-
 def archive_row_words(W32: int, float_type: FloatType) -> int:
     """Archive row width CWf (u32 words) for inputs of W32 words (padded
     for the type), the JAX package's ``float_codec.py:176-192``."""
@@ -152,7 +148,7 @@ def float_compress_core(
         data32 = F.pad(data32, (0, req - data32.shape[1] % req))
     data32 = data32.contiguous()
     B, W32 = data32.shape
-    S_cap = _floats_capacity(W32, ft)
+    S_cap = floats_capacity(W32, ft)
     P = FLOAT_NUM_COMP_SEGMENTS[ft]
     n64 = n.to(device=dev, dtype=torch.int64)
     if bool(((n64 < 0) | (n64 > S_cap)).any()):
@@ -371,7 +367,7 @@ def float_compress_padded(
         data32, n, ft, prob_bits, use_checksum, native, plain
     )
     comp = out32.view(torch.uint8)
-    cb = (max_float_compressed_size(ft, _floats_capacity(data32.shape[1], ft))
+    cb = (max_float_compressed_size(ft, floats_capacity(data32.shape[1], ft))
           if out_bytes is None else out_bytes)
     if comp.shape[1] < cb:
         comp = F.pad(comp, (0, cb - comp.shape[1]))

@@ -44,6 +44,15 @@ def umulhi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (hi + (lo >> 16)) >> 16
 
 
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each u32 value (PTX ``__popc``), SWAR in int64."""
+    x = x & M32
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
 def clz32(x: torch.Tensor) -> torch.Tensor:
     """Count of leading zeros of a u32 value; clz32(0) == 32."""
     x = x & M32

@@ -27,11 +27,13 @@ from typing import Dict, List, Sequence
 import torch
 
 from ..core.constants import (
+    FLOAT_WORD_SIZE,
     MAX_BLOCK_WORDS32,
     MAX_ROW_WORDS32,
     NUM_SYMBOLS,
     WARP_SIZE,
     FloatType,
+    sparse_bitmap_bytes,
 )
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -45,6 +47,9 @@ SOURCES = (
     "split_wide_hist.cu",
     "join_wide.cu",
     "byte_hist.cu",
+    "bitmap_pack.cu",
+    "sparse_compact.cu",
+    "sparse_expand.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +69,9 @@ launches: Dict[str, int] = {
     "rans_encode_blocks": 0,
     "rans_decode_blocks": 0,
     "rans_decode_join16_blocks": 0,
+    "bitmap_pack": 0,
+    "sparse_compact": 0,
+    "sparse_expand": 0,
 }
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
@@ -150,6 +158,9 @@ def library() -> ctypes.CDLL:
         "dgt_rans_encode_blocks": [P, P, P, P, L, L, I, P, P, P, P],
         "dgt_rans_decode_blocks": [P, L, P, P, P, P, I, L, L, P, P],
         "dgt_rans_decode_join16_blocks": [P, L, P, P, P, P, I, P, L, L, I, P, P],
+        "dgt_bitmap_pack": [P, L, L, L, P, L, I, P, P],
+        "dgt_sparse_compact": [P, L, L, L, P, P, L, I, P, L, P],
+        "dgt_sparse_expand": [P, L, L, L, P, P, L, P, I, P, L, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -391,3 +402,88 @@ def byte_hist(rows: torch.Tensor, sizes: torch.Tensor):
     _check(lib, err, "byte_hist")
     launches["byte_hist"] += 1
     return hist, csum
+
+
+def _rows_i32(t: torch.Tensor, shape, name: str) -> None:
+    if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be int32 of shape {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def pack_bitmap(data32: torch.Tensor, n: torch.Tensor, float_type):
+    """K9 launch; arguments as ``ops.bitmap_pack.pack_bitmap``, with n
+    int32."""
+    _cuda_only(data32, n)
+    B, W32 = data32.shape
+    _batch_ok(B)
+    ws = FLOAT_WORD_SIZE[FloatType(float_type)]
+    _rows_i32(data32, (B, W32), "data32")
+    _rows_i32(n, (B,), "n")
+    s_cap = 4 * W32 // ws
+    bw = sparse_bitmap_bytes(s_cap) // 4
+    out = torch.empty((B, bw), dtype=torch.int32, device=data32.device)
+    lib = library()
+    with torch.cuda.device(data32.device):
+        err = lib.dgt_bitmap_pack(data32.data_ptr(), B, W32, s_cap, n.data_ptr(),
+                                  bw, ws, out.data_ptr(), _stream(data32))
+    _check(lib, err, "bitmap_pack")
+    launches["bitmap_pack"] += 1
+    return out
+
+
+def compact_by_bitmap(data32: torch.Tensor, bm32: torch.Tensor,
+                      ranks: torch.Tensor, float_type):
+    """K10 launch; arguments and results as
+    ``ops.sparse_stream.compact_by_bitmap``."""
+    _cuda_only(data32, bm32, ranks)
+    B, W32 = data32.shape
+    _batch_ok(B)
+    ws = FLOAT_WORD_SIZE[FloatType(float_type)]
+    BW = bm32.shape[1] if bm32.dim() == 2 else -1
+    _rows_i32(data32, (B, W32), "data32")
+    _rows_i32(bm32, (B, BW), "bm32")
+    _rows_i32(ranks, (B, BW + 1), "ranks")
+    s_cap = 4 * W32 // ws
+    if s_cap > 32 * BW:
+        raise ValueError(f"{BW} bitmap words cannot cover {s_cap} floats")
+    ow = -(-s_cap * ws // 4)
+    out = torch.empty((B, ow), dtype=torch.int32, device=data32.device)
+    lib = library()
+    with torch.cuda.device(data32.device):
+        err = lib.dgt_sparse_compact(
+            data32.data_ptr(), B, W32, s_cap, bm32.data_ptr(), ranks.data_ptr(),
+            BW, ws, out.data_ptr(), ow, _stream(data32))
+    _check(lib, err, "sparse_compact")
+    launches["sparse_compact"] += 1
+    return out, ranks[:, -1]
+
+
+def expand_by_bitmap(nz32: torch.Tensor, bm32: torch.Tensor,
+                     ranks: torch.Tensor, n: torch.Tensor, out_floats: int,
+                     float_type):
+    """K11 launch; arguments as ``ops.sparse_stream.expand_by_bitmap``, with
+    n in [0, out_floats]."""
+    _cuda_only(nz32, bm32, ranks, n)
+    B, NZW = nz32.shape
+    _batch_ok(B)
+    ws = FLOAT_WORD_SIZE[FloatType(float_type)]
+    BW = bm32.shape[1] if bm32.dim() == 2 else -1
+    _rows_i32(nz32, (B, NZW), "nz32")
+    _rows_i32(bm32, (B, BW), "bm32")
+    _rows_i32(ranks, (B, BW + 1), "ranks")
+    _rows_i32(n, (B,), "n")
+    nz_cap = 4 * NZW // ws
+    ow = -(-out_floats * ws // 4)
+    if out_floats < 0 or nz_cap < 1 or 4 * ow // ws > 32 * BW:
+        raise ValueError(f"bad shapes: {out_floats} floats out of {nz_cap} "
+                         f"nonzero slots and {BW} bitmap words")
+    out = torch.empty((B, ow), dtype=torch.int32, device=nz32.device)
+    lib = library()
+    with torch.cuda.device(nz32.device):
+        err = lib.dgt_sparse_expand(
+            nz32.data_ptr(), B, NZW, nz_cap, bm32.data_ptr(), ranks.data_ptr(),
+            BW, n.data_ptr(), ws, out.data_ptr(), ow, _stream(nz32))
+    _check(lib, err, "sparse_expand")
+    launches["sparse_expand"] += 1
+    return out

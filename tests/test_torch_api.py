@@ -197,11 +197,13 @@ def test_caller_supplied_histogram_matches_default(rng, native):
 
 def test_sparse_and_bad_inputs_raise():
     t = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="A12"):
-        C.compress_data(True, [t], sparse=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        C.decompress_data_simple(True, [torch.zeros(64, dtype=torch.uint8)],
-                                 sparse=True)
+    # the sparse codec takes what the dense one takes, and refuses the same
+    with pytest.raises(ValueError, match="unsupported float dtype"):
+        C.compress_data(True, [t.to(torch.int32)], sparse=True)
+    with pytest.raises(ValueError, match="dtype"):
+        C.compress_data(True, [t, t.to(torch.float16)], sparse=True)
+    with pytest.raises(ValueError, match="empty"):
+        C.compress_data(True, [], sparse=True)
     with pytest.raises(ValueError, match="empty"):
         C.compress_data(True, [])
     with pytest.raises(ValueError, match="dtype"):

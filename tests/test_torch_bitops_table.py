@@ -45,6 +45,17 @@ def test_clz32_equals_jax():
     assert np.array_equal(got, want.astype(np.int64))
 
 
+def test_popcount32_equals_jax():
+    from dietgpu_fork_tpu.ops.pallas.sparse_stream import popcount32
+
+    x = _u32s(4)
+    got = TB.popcount32(_t(x)).numpy()
+    want = np.asarray(popcount32(jnp.asarray(x)))
+    assert np.array_equal(got, want.astype(np.int64))
+    assert np.array_equal(got, np.unpackbits(x.view(np.uint8)).reshape(
+        -1, 32).sum(axis=1))
+
+
 def test_udiv_u43_by_u32_equals_jax():
     # the domain of the magic-constant division: a_hi < divisor <= 2^16
     # (the JAX 16-bit long division needs no more; pdf <= 2^11 in use)

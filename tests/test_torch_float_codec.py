@@ -209,8 +209,8 @@ def test_corrupt_archive_fails_without_raising(rng, how):
 
 
 def test_unported_options_raise():
-    """The classic layout and verify_checksum are ported; the sparse codec
-    is the option left, and the API refuses it."""
+    """Every option is ported now: the classic layout, verify_checksum and
+    the sparse codec take a tiny input; what no codec takes still raises."""
     from dietgpu_fork_torch.api import codec as C
 
     d = torch.zeros((1, 8), dtype=torch.int32)
@@ -221,8 +221,12 @@ def test_unported_options_raise():
         w, s, _, ca, cg = TF.float_decompress_core(
             out, torch.zeros(1), 4, ft, verify_checksum=True, native=False)
         assert bool(s[0]) and torch.equal(ca, cg) and not w.any()
-    with pytest.raises(NotImplementedError):
-        C.compress_data(True, [torch.zeros(4)], sparse=True)
+    comp, _, _ = C.compress_data(True, [torch.zeros(4)], sparse=True)
+    outs, _, ok, _, _ = C.decompress_data(True, comp, [4], torch.float32,
+                                          sparse=True)
+    assert bool(ok.all()) and torch.equal(outs[0], torch.zeros(4))
+    with pytest.raises(ValueError, match="unsupported float dtype"):
+        C.compress_data(True, [torch.zeros(4, dtype=torch.int64)], sparse=True)
 
 
 @pytest.mark.parametrize("n", [-1, 17])

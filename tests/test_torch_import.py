@@ -34,6 +34,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import dietgpu_fork_torch\n"
         "import dietgpu_fork_torch.models.float_codec\n"
+        "import dietgpu_fork_torch.models.sparse\n"
+        "import dietgpu_fork_torch.ops.bitmap_pack\n"
+        "import dietgpu_fork_torch.ops.sparse_stream\n"
         "import dietgpu_fork_torch.runtime.cuda_kernels\n"
         "import dietgpu_fork_torch.core.interop\n"
         "import dietgpu_fork_torch.api.codec\n"
@@ -67,7 +70,7 @@ def test_port_source_names_no_jax(path):
         "FLOAT_VERSION_ALIGNED", "FLOAT_ALIGN_MIN",
         "FLOAT_SECTION_ALIGN_BYTES", "BLOCK_ALIGNMENT", "VALID_PROB_BITS",
         "DEFAULT_PROB_BITS", "ANS_HEADER_BYTES", "FLOAT_HEADER_BYTES",
-        "FLOAT_HEADER2_BYTES",
+        "FLOAT_HEADER2_BYTES", "SPARSE_HEADER_BYTES",
     ],
 )
 def test_constant_equals_jax(name):
@@ -101,9 +104,13 @@ def test_size_functions_equal_jax(size):
     assert T.num_blocks(size) == J.num_blocks(size)
     assert T.max_compressed_size(size) == J.max_compressed_size(size)
     assert T.raw_comp_block_max_size(size or 1) == J.raw_comp_block_max_size(size or 1)
+    assert T.sparse_bitmap_bytes(size) == J.sparse_bitmap_bytes(size)
     for ft in (1, 2, 3, 4):
         assert T.max_float_compressed_size(T.FloatType(ft), size) == (
             J.max_float_compressed_size(J.FloatType(ft), size)
+        )
+        assert T.max_sparse_float_compressed_size(T.FloatType(ft), size) == (
+            J.max_sparse_float_compressed_size(J.FloatType(ft), size)
         )
 
 
@@ -111,7 +118,8 @@ def test_size_functions_equal_jax(size):
     "wrapper",
     ["split16_hist", "encode_rows", "runs_merge", "decode_join16",
      "split_wide_hist", "decode_rows", "join_wide", "byte_hist",
-     "encode_blocks", "decode_blocks", "decode_join16_blocks"],
+     "encode_blocks", "decode_blocks", "decode_join16_blocks", "pack_bitmap",
+     "compact_by_bitmap", "expand_by_bitmap"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper never runs, builds or falls back on a CPU tensor."""
@@ -131,6 +139,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "encode_blocks": (t, t[0, :1], t[:, :256], t[:, :256], 10),
         "decode_blocks": (t[None], t, t, t, t, 10),
         "decode_join16_blocks": (t[None], t, t, t, t, t, 10, True),
+        "pack_bitmap": (t, t[0, :1], T.FloatType.FLOAT32),
+        "compact_by_bitmap": (t, t[:, :32], t[:, :33], T.FloatType.FLOAT32),
+        "expand_by_bitmap": (t, t[:, :32], t[:, :33], t[0, :1], 1024,
+                             T.FloatType.FLOAT32),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(K, wrapper)(*args)
@@ -138,14 +150,18 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
 
 
 def test_every_source_is_built_and_counted():
-    """K8 and each kernel source is in the build, and each layout of K2, K4
-    and K6 has its own launch counter."""
+    """Each kernel source is in the build (K8 and the sparse K9-K11
+    among them), and each layout of K2, K4 and K6 has its own launch
+    counter."""
     from dietgpu_fork_torch.runtime import cuda_kernels as K
 
     on_disk = sorted(p.name for p in K.CSRC.glob("*.cu"))
-    assert sorted(K.SOURCES) == on_disk and "byte_hist.cu" in K.SOURCES
+    assert sorted(K.SOURCES) == on_disk
+    assert {"byte_hist.cu", "bitmap_pack.cu", "sparse_compact.cu",
+            "sparse_expand.cu"} <= set(K.SOURCES)
     assert {"byte_hist", "rans_encode_blocks", "rans_decode_blocks",
-            "rans_decode_join16_blocks"} <= set(K.launches)
+            "rans_decode_join16_blocks", "bitmap_pack", "sparse_compact",
+            "sparse_expand"} <= set(K.launches)
     K.launches["byte_hist"] = 3
     K.reset_launches()
     assert not any(K.launches.values())
