@@ -4,9 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the eleven CUDA kernels from
-   ``dietgpu_fork_torch/csrc`` (nvcc, sm_90a, one process per source),
-   printing the build time;
+   versions, and builds the fourteen CUDA kernels (K1-K14, twelve sources)
+   from ``dietgpu_fork_torch/csrc`` (nvcc, sm_90a, one process per
+   source), printing the build time and ptxas's register and spill report;
 2. drives each main path once with every kernel wrapper recording its
    calls, then holds each kernel and mode against its plain PyTorch
    version on the recorded inputs (the main path's own shapes), bit for
@@ -29,6 +29,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      reference sparse benchmark's largest cell, 5 x 15,000,000 floats, half
      of them exact zeros over N(0,1), prob_bits 9, checksum on, default
      layout, in bf16, fp32 and fp64;
+   - the decode formulations, each on the archive of its core path's input
+     made at set-up, so a run is the decode alone: FP32-fused
+     (``float_decompress_core(..., fused=True)``: K12) and BF16-twopass
+     (``fused=False``: K6 then K13), native and classic; each must equal
+     the default decode of the same archive, and the default paths above
+     must launch neither K12 nor K13;
+   - O, the ops with no TPU path (``OpsPhase``): ``split_packed`` (K1 and
+     K5 without histogram) of each type's 16Mi input and the join back
+     (K13, K7), ``chunked_lookup`` and ``rowwise_lookup`` (K14) with
+     indices past both ends of the tables;
 4. links the port to the JAX reference without JAX: the archive of a fixed
    v2-container input of each type must hash to its ``GOLDEN_V2_SHA256``
    entry, a classic bf16 and a classic raw-ANS archive to their
@@ -45,10 +55,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    zeros and a ragged batch of 64 bf16 members, each against the all-plain
    archive and round-tripped;
 6. times compress and decompress of each main path (3 warm-ups, median of
-   10) on the kernel path, and the all-plain path (median of 3).
+   10) on the kernel path, and the all-plain path (median of 3); each
+   decode formulation in turns with the default one on the same archive.
 
 ``python3 chip_smoke.py --profile`` instead profiles each main path's
-compress and decompress (``profile_paths``) and prints no result.
+compress and decompress, and each decode formulation's decompress
+(``profile_paths``), and prints no result.
 
 It exits non-zero, printing no result, when CUDA is not available or any
 phase fails. The line before the last is a JSON object with one entry per
@@ -88,16 +100,30 @@ from dietgpu_fork_torch.models.sparse import (
 )
 from dietgpu_fork_torch.ops.bitmap_pack import bitmap_words, pack_bitmap_plain
 from dietgpu_fork_torch.ops.float_split import (
+    join16_rows,
+    join16_rows_plain,
+    join_wide,
     join_wide_plain,
     split16_hist_plain,
+    split16_plain,
+    split_packed,
     split_wide_hist_plain,
+    split_wide_plain,
 )
 from dietgpu_fork_torch.ops.histogram import byte_hist_plain
+from dietgpu_fork_torch.ops.lookup import (
+    chunked_lookup,
+    chunked_lookup_plain,
+    rowwise_lookup,
+    rowwise_lookup_plain,
+)
 from dietgpu_fork_torch.ops.merge import runs_merge_plain
 from dietgpu_fork_torch.ops.rans_decode import (
     decode_blocks_plain,
     decode_join16_blocks_plain,
     decode_join16_plain,
+    decode_join32_blocks_plain,
+    decode_join32_plain,
     decode_rows_plain,
 )
 from dietgpu_fork_torch.ops.rans_encode import encode_blocks_plain, encode_rows_plain
@@ -157,6 +183,15 @@ P_A, P_B = "A:api-bf16", "B:api-raw"
 P_CF, P_CR, P_C32 = "C:api-bf16-classic", "C:api-raw-classic", "C:api-fp32-classic"
 P_S16, P_S32, P_S64 = "S:api-sparse-bf16", "S:api-sparse-fp32", "S:api-sparse-fp64"
 P_S = (P_S16, P_S32, P_S64)
+# the decode formulations: fused fp32 (K12) and two-pass bf16 (K6 + K13) on
+# the fp32 and bf16 core archives, native and classic; phase O, the ops with
+# no TPU path
+P_F32F, P_F32FC = "FP32-fused", "FP32-fused-classic"
+P_B16T, P_B16TC = "BF16-twopass", "BF16-twopass-classic"
+P_O = "O:ops"
+# phase O's lookups: the bf16 decode's LUT against one index per float, and
+# one row-walk step's stream reads (a staged row each, 128 lanes)
+O_LUT, O_ROWS, O_ROW_WORDS, O_LANES = 1024, 1024, 5120, 128
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -172,8 +207,9 @@ KERNELS = [
      (P_BF16, P_FP32, P_FP64, P_A, P_B) + P_S),
     ("runs_merge", "runs_merge", runs_merge_plain,
      "dietgpu_fork_torch/csrc/runs_merge.cu",
-     ("ops/pallas/merge.py:305",),
-     (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S),
+     ("ops/pallas/merge.py:305", "ops/pallas/merge.py:74"),
+     (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S
+     + (P_F32F, P_F32FC, P_B16T, P_B16TC)),
     ("decode_join16", "rans_decode_join16", decode_join16_plain,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_BF16, P_A, P_S16)),
@@ -185,12 +221,12 @@ KERNELS = [
     ("decode_rows", "rans_decode_rows", decode_rows_plain,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",),
-     (P_FP32, P_FP64, P_B, P_S32, P_S64)),
+     (P_FP32, P_FP64, P_B, P_S32, P_S64, P_B16T)),
     ("join_wide", "join_wide", join_wide_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
       "ops/pallas/float_split_fused.py:412"),
-     (P_FP32, P_FP64, P_C32, P_S32, P_S64)),
+     (P_FP32, P_FP64, P_C32, P_S32, P_S64, P_O)),
     ("byte_hist", "byte_hist", byte_hist_plain,
      "dietgpu_fork_torch/csrc/byte_hist.cu",
      ("ops/pallas/histogram_mxu.py:113", "ops/pallas/histogram_mxu.py:93"),
@@ -201,7 +237,7 @@ KERNELS = [
       "ops/pallas/rans_encode_fused.py:114"), (P_CF, P_CR, P_C32)),
     ("decode_blocks", "rans_decode_blocks", decode_blocks_plain,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
-     ("ops/pallas/rans_decode_fused2.py:104",), (P_CR, P_C32)),
+     ("ops/pallas/rans_decode_fused2.py:104",), (P_CR, P_C32, P_B16TC)),
     ("decode_join16_blocks", "rans_decode_join16_blocks",
      decode_join16_blocks_plain, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_CF,)),
@@ -216,6 +252,28 @@ KERNELS = [
     ("expand_by_bitmap", "sparse_expand", expand_by_bitmap_plain,
      "dietgpu_fork_torch/csrc/sparse_expand.cu",
      ("ops/pallas/sparse_stream.py:60",), P_S),
+    ("decode_join32", "rans_decode_join32", decode_join32_plain,
+     "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
+     ("ops/pallas/rans_decode_fused2.py:104",
+      "ops/pallas/rans_decode_fused2.py:267"), (P_F32F,)),
+    ("decode_join32_blocks", "rans_decode_join32_blocks",
+     decode_join32_blocks_plain, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
+     ("ops/pallas/rans_decode_fused2.py:104",
+      "ops/pallas/rans_decode_fused2.py:267"), (P_F32FC,)),
+    ("join16_rows", "join16", join16_rows_plain,
+     "dietgpu_fork_torch/csrc/join_wide.cu",
+     ("ops/pallas/float_split_fused.py:377",), (P_B16T, P_B16TC, P_O)),
+    ("split16", "split16", split16_plain,
+     "dietgpu_fork_torch/csrc/split16_hist.cu",
+     ("ops/pallas/float_split_fused.py:234",), (P_O,)),
+    ("split_wide", "split_wide", split_wide_plain,
+     "dietgpu_fork_torch/csrc/split_wide_hist.cu",
+     ("ops/pallas/float_split_fused.py:329",
+      "ops/pallas/float_split_fused.py:349"), (P_O,)),
+    ("chunked_lookup", "chunked_lookup", chunked_lookup_plain,
+     "dietgpu_fork_torch/csrc/lookup.cu", ("ops/pallas/lookup.py:38",), (P_O,)),
+    ("rowwise_lookup", "rowwise_lookup", rowwise_lookup_plain,
+     "dietgpu_fork_torch/csrc/lookup.cu", ("ops/pallas/lookup.py:60",), (P_O,)),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 
@@ -236,6 +294,13 @@ def _nnz(ranks) -> int:
     return int(ranks[:, -1].sum())
 
 
+def _distinct(tables, idx) -> int:
+    """Distinct clamped indices over the rows: the table words that one
+    lookup per row must read."""
+    s = idx.clamp(0, tables.shape[1] - 1).sort(dim=1).values
+    return int(s.shape[0] + (s[:, 1:] != s[:, :-1]).sum()) if s.numel() else 0
+
+
 # the bytes of the one input whose use depends on the data, as (argument
 # index, the bytes that the call's data needs of it)
 _DATA_INPUT = {
@@ -252,6 +317,9 @@ _DATA_INPUT = {
     "pack_bitmap": (0, lambda a: _ws(a[2]) * int(a[1].sum())),
     "compact_by_bitmap": (0, lambda a: _ws(a[3]) * _nnz(a[2])),
     "expand_by_bitmap": (0, lambda a: _ws(a[5]) * _nnz(a[2])),
+    "decode_join32": (0, lambda a: 2 * int(a[1].sum())),
+    "decode_join32_blocks": (0, lambda a: 2 * int(a[1].sum())),
+    "rowwise_lookup": (0, lambda a: 4 * _distinct(*a)),
 }
 
 
@@ -294,6 +362,10 @@ def library_call(wname: str, args):
                          enumerate(mask.sum(dim=1).tolist())])
         return lambda: torch.zeros(mask.shape, dtype=items.dtype,
                                    device=n.device).masked_scatter_(mask, src)
+    if wname in ("chunked_lookup", "rowwise_lookup"):
+        tables, idx = args  # the clamp is set-up: gather takes no clamp
+        safe = idx.to(torch.int64).clamp(0, tables.shape[1] - 1)
+        return lambda: torch.gather(tables, 1, safe)
     return None
 
 
@@ -568,6 +640,79 @@ class ApiSparsePath:
             for o, x in zip(outs, self.xs))
 
 
+class DecodePath(MainPath):
+    """A decode formulation on a core path's archive: the 16Mi N(0,1) floats
+    of type ft compressed once at set-up by the kernels, in the native or
+    classic layout, then ``float_decompress_core(..., fused=fused)``.
+    compress() hands back the set-up archive, so a run of the path is the
+    decode alone; decompress_default() is the default formulation."""
+
+    decode_only = True
+
+    def __init__(self, name, ft: FloatType, native: bool, fused: bool, dev):
+        super().__init__(ft, dev)
+        self.name, self.native, self.fused = name, native, fused
+        self.arc, self.comp_bytes = float_compress_core(
+            self.d, self.n, ft, PROB_BITS, native=native)
+
+    def compress(self, plain=False):
+        return self.arc, self.comp_bytes
+
+    def decompress(self, out32, plain=False):
+        return float_decompress_core(out32, self.base, MAIN_N, self.ft,
+                                     PROB_BITS, native=self.native,
+                                     plain=plain, fused=self.fused)
+
+    def decompress_default(self, out32):
+        return float_decompress_core(out32, self.base, MAIN_N, self.ft,
+                                     PROB_BITS, native=self.native)
+
+
+class OpsPhase:
+    """O: the ops with no TPU path, at the main paths' sizes: split_packed
+    of the 16Mi input of each type and the join back (join16_rows,
+    join_wide); chunked_lookup at the bf16 decode's shapes, a [1, 1024] LUT
+    and one index per float; rowwise_lookup at one row-walk step, a
+    [1024, 5120] table per row and 128 indices a row. Indices run past both
+    ends of the tables. The data is made on the card from a seed."""
+
+    name = P_O
+
+    def __init__(self, dev):
+        self.rows = {ft: rows_from_numpy(pack_rows([float_words(0, MAIN_N, ft)],
+                                                   MAIN_N), dev)
+                     for ft in (BF16, FP32, FP64)}
+        g = torch.Generator(device=dev)
+        g.manual_seed(5)
+
+        def ints(lo, hi, shape):
+            return torch.randint(lo, hi, shape, generator=g, device=dev,
+                                 dtype=torch.int32)
+
+        self.lut = ints(-(1 << 31), (1 << 31) - 1, (1, O_LUT))
+        self.lut_idx = ints(-64, O_LUT + 64, (1, MAIN_N))
+        self.tabs = ints(-(1 << 31), (1 << 31) - 1, (O_ROWS, O_ROW_WORDS))
+        self.tab_idx = ints(-64, O_ROW_WORDS + 64, (O_ROWS, O_LANES))
+
+    def run(self):
+        """{type: split then join of its rows, "chunked", "rowwise"}."""
+        out = {}
+        for ft, d in self.rows.items():
+            planes, secs = split_packed(d, ft)
+            out[ft] = (join16_rows(planes[0], secs[0], True) if ft == BF16
+                       else join_wide(planes, *secs, ft))
+        out["chunked"] = chunked_lookup(self.lut, self.lut_idx)
+        out["rowwise"] = rowwise_lookup(self.tabs, self.tab_idx)
+        return out
+
+    def ok(self, out) -> bool:
+        return (all(torch.equal(out[ft], d) for ft, d in self.rows.items())
+                and torch.equal(out["chunked"],
+                                chunked_lookup_plain(self.lut, self.lut_idx))
+                and torch.equal(out["rowwise"],
+                                rowwise_lookup_plain(self.tabs, self.tab_idx)))
+
+
 def ragged_batch(ft, count, seed, dev):
     """A ragged batch of up to 128Ki floats per member, sizes 0, 1, 4097
     and 128Ki among them: compress on both paths, decode, check."""
@@ -746,23 +891,40 @@ def phase_f(comp: torch.Tensor):
                        "a checksum error")
 
 
-def profile_paths(paths, card: str) -> None:
-    """``--profile``: for each main path's compress and decompress, the
-    host-clock median of 10 calls ending in a synchronise, and from a
-    torch.profiler trace of 5 calls after 3 warm-ups the device busy time
-    (kernels, copies and fills), the idle share (1 - busy / host), the
-    host's kernel launches, the device's operations and the six device
-    operations that take the most time, each per call."""
+def _kernel_name(name: str) -> str:
+    """A kernel of ``csrc/`` (they sit in an anonymous namespace) by its
+    function and template arguments; other device ops as the profiler
+    names them."""
+    head = name.removeprefix("void ")
+    if not head.startswith("(anonymous namespace)::"):
+        return name
+    return head.removeprefix("(anonymous namespace)::").split("(")[0]
+
+
+def profile_paths(paths, ops, card: str) -> None:
+    """``--profile``: for each main path's compress and decompress (a
+    decode formulation's decompress alone; phase O's run), the host-clock
+    median of 10 calls ending in a synchronise, and from a torch.profiler
+    trace of 5 calls after 3 warm-ups the device busy time (kernels, copies
+    and fills), the idle share (1 - busy / host), the host's kernel
+    launches, the device's operations and the eight device operations
+    that take the most time, each per call."""
     from torch.profiler import ProfilerActivity, profile
 
     trace = K.BUILD_DIR / f"profile.{os.getpid()}.json"
     K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     print(f"profile ({card}): path, call, host ms, device busy ms, idle "
           "share, host launches, device ops")
-    for mp in paths:
-        arc = mp.compress()[0]
-        for what, fn in (("compress", mp.compress),
-                         ("decompress", lambda: mp.decompress(arc))):
+    for mp in paths + [ops]:
+        if mp is ops:
+            runs = (("run", ops.run),)
+        else:
+            arc = mp.compress()[0]
+            runs = (("compress", mp.compress),
+                    ("decompress", lambda: mp.decompress(arc)))
+            if getattr(mp, "decode_only", False):
+                runs = runs[1:]  # its compress is the set-up archive
+        for what, fn in runs:
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
@@ -792,11 +954,75 @@ def profile_paths(paths, card: str) -> None:
                   f"{len(dev) / 5:.0f}")
             by_name = {}
             for e in dev:
-                by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+                name = _kernel_name(e["name"])
+                by_name[name] = by_name.get(name, 0.0) + e["dur"]
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
             print("  top: " + "; ".join(f"{name[:70]} {us / 5 / 1e3:.3f} ms"
                                         for name, us in top))
-        del arc
+
+
+def hold_kernels(name: str, calls, report) -> None:
+    """Phase 2 for one path: each kernel of the path against its plain
+    version on the calls the path recorded, bit for bit, timed beside its
+    bound and its library call; no kernel off the path recorded."""
+    torch.cuda.synchronize()
+    for wname, _, plain_fn, _, _, needs in KERNELS:
+        if name not in needs:
+            check(not calls[wname], f"{wname} ran on the {name} path")
+            continue
+        check(len(calls[wname]) > 0, f"{wname} recorded no {name} call")
+        err = 0
+        for args, out in calls[wname]:
+            err = max(err, max_abs_err(out, plain_fn(*args)))
+        check(err == 0, f"{wname} differs from its plain version by {err} "
+                        f"on the {name} path")
+        kernel = getattr(K, wname)
+        ms = sum(cuda_ms(lambda a=a: kernel(*a), 3, 10)
+                 for a, _ in calls[wname])
+        plain_ms = sum(cuda_ms(lambda a=a: plain_fn(*a), 1, 3)
+                       for a, _ in calls[wname])
+        b_ms = sum(bound_ms(wname, a, out) for a, out in calls[wname])
+        libs = [library_call(wname, a) for a, _ in calls[wname]]
+        lib_ms = (None if libs[0] is None
+                  else sum(cuda_ms(f, 3, 10) for f in libs))
+        del libs
+        print(f"{wname} [{name}]: {len(calls[wname])} call(s), kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms, "
+              f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+              f"max_abs_err {err}")
+        r = report[wname]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += b_ms
+        r["ms_by_path"][name] = ms
+        r["plain_ms_by_path"][name] = plain_ms
+        r["bound_ms_by_path"][name] = b_ms
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+            r["library_ms_by_path"][name] = lib_ms
+
+
+def counted(name: str, fn, launches, report):
+    """Phase 3 for one path: every launch counter set to 0 just before
+    fn() and read just after; each kernel of the path must have launched
+    and no other. Adds the counts to launches and the report; returns
+    (fn's result, the counts)."""
+    torch.cuda.synchronize()
+    K.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    for wname, counter, _, _, _, needs in KERNELS:
+        if name in needs:
+            check(counts[counter] > 0,
+                  f"{wname} was not launched on the {name} main path")
+        else:
+            check(counts[counter] == 0,
+                  f"{wname} was launched on the {name} main path")
+        launches[wname] += counts[counter]
+        report[wname]["launches_by_path"][name] = counts[counter]
+    return res, counts
 
 
 def main() -> int:
@@ -822,8 +1048,13 @@ def main() -> int:
         ApiRawPath(P_CR, False, dev),
         ApiFloatPath(P_C32, FP32, False, dev),
     ] + [ApiSparsePath(name, ft, dev) for name, ft in zip(P_S, (BF16, FP32, FP64))]
+    paths += [DecodePath(name, ft, native, fused, dev)
+              for name, ft, native, fused in (
+                  (P_F32F, FP32, True, True), (P_B16T, BF16, True, False),
+                  (P_F32FC, FP32, False, True), (P_B16TC, BF16, False, False))]
+    ops = OpsPhase(dev)
     if "--profile" in sys.argv[1:]:
-        profile_paths(paths, card)
+        profile_paths(paths, ops, card)
         return 0
 
     # 2. every kernel and mode against its plain version at each main
@@ -839,68 +1070,36 @@ def main() -> int:
         if len(replaces) > 1:
             report[w]["also_replaces"] = list(replaces[1:])
     for mp in paths:
-        calls = record_calls(lambda: mp.decompress(mp.compress()[0]))
-        torch.cuda.synchronize()
-        for wname, _, plain_fn, _, _, needs in KERNELS:
-            if mp.name not in needs:
-                check(not calls[wname], f"{wname} ran on the {mp.name} path")
-                continue
-            check(len(calls[wname]) > 0, f"{wname} recorded no {mp.name} call")
-            err = 0
-            for args, out in calls[wname]:
-                err = max(err, max_abs_err(out, plain_fn(*args)))
-            check(err == 0, f"{wname} differs from its plain version by {err} "
-                            f"on the {mp.name} path")
-            kernel = getattr(K, wname)
-            ms = sum(cuda_ms(lambda a=a: kernel(*a), 3, 10)
-                     for a, _ in calls[wname])
-            plain_ms = sum(cuda_ms(lambda a=a: plain_fn(*a), 1, 3)
-                           for a, _ in calls[wname])
-            b_ms = sum(bound_ms(wname, a, out) for a, out in calls[wname])
-            libs = [library_call(wname, a) for a, _ in calls[wname]]
-            lib_ms = (None if libs[0] is None
-                      else sum(cuda_ms(f, 3, 10) for f in libs))
-            del libs
-            print(f"{wname} [{mp.name}]: {len(calls[wname])} call(s), kernel "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms, "
-                  f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
-                  f"max_abs_err {err}")
-            r = report[wname]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            r["ms"] += ms
-            r["plain_ms"] += plain_ms
-            r["bound_ms"] += b_ms
-            r["ms_by_path"][mp.name] = ms
-            r["plain_ms_by_path"][mp.name] = plain_ms
-            r["bound_ms_by_path"][mp.name] = b_ms
-            if lib_ms is not None:
-                r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
-                r["library_ms_by_path"][mp.name] = lib_ms
-        del calls
+        hold_kernels(mp.name, record_calls(
+            lambda: mp.decompress(mp.compress()[0])), report)
+    hold_kernels(ops.name, record_calls(ops.run), report)
 
     # 3. the main paths, each counted on its own
     archives = {}
     launches = {w: 0 for w, *_ in KERNELS}
     for mp in paths:
-        torch.cuda.synchronize()
-        K.reset_launches()
-        arc, comp_bytes = mp.compress()
-        res = mp.decompress(arc)
-        torch.cuda.synchronize()
-        counts = dict(K.launches)
-        for wname, counter, _, _, _, needs in KERNELS:
-            if mp.name in needs:
-                check(counts[counter] > 0,
-                      f"{wname} was not launched on the {mp.name} main path")
-            else:
-                check(counts[counter] == 0,
-                      f"{wname} was launched on the {mp.name} main path")
-            launches[wname] += counts[counter]
-            report[wname]["launches_by_path"][mp.name] = counts[counter]
+
+        def run(mp=mp):
+            a, c = mp.compress()
+            return a, c, mp.decompress(a)
+
+        (arc, comp_bytes, res), counts = counted(mp.name, run, launches, report)
         check(mp.round_trip_ok(res), f"{mp.name} main path round trip")
         cb = int(comp_bytes.sum())
         print(f"{mp.name} main path: comp_bytes {cb}, ratio "
               f"{cb / mp.raw_bytes:.6f}, launches {counts}")
+        if getattr(mp, "decode_only", False):
+            # the other formulation of the same archive gives the same words
+            other = mp.decompress_default(arc)
+            check(all(torch.equal(x, y) for x, y in zip(res, other)),
+                  f"{mp.name} equals the default decode")
+            check(mp.round_trip_ok(mp.decompress(arc, plain=True)),
+                  f"{mp.name} plain decode round trip")
+            del other, res
+            archives[mp.name] = arc
+            print(f"{mp.name} path: round trip exact, equal to the default "
+                  "decode and to the plain decode")
+            continue
         p_arc, p_comp_bytes = mp.compress(plain=True)
         check(torch.equal(p_arc, arc) and torch.equal(p_comp_bytes, comp_bytes),
               f"{mp.name} kernel archive equals the all-plain archive")
@@ -911,6 +1110,12 @@ def main() -> int:
         archives[mp.name] = arc
         print(f"{mp.name} main path: round trip exact, archive == plain "
               "archive, cross-decoding both ways")
+    o_out, counts = counted(ops.name, ops.run, launches, report)
+    check(ops.ok(o_out), "O: split then join returns the input, lookups "
+                         "equal their plain versions")
+    print(f"{ops.name}: split_packed + join exact for bf16, fp32, fp64; "
+          f"lookups == plain; launches {counts}")
+    del o_out
     for w in launches:
         report[w]["launches"] = launches[w]
     # A: the API's archive is float_compress_core's, in the native layout
@@ -964,16 +1169,28 @@ def main() -> int:
     phase_sparse_classic(dev)
     ragged_sparse_batch(dev)
 
-    # 6. times at the main paths
+    # 6. times at the main paths; a decode formulation in turns with the
+    # default one on the same archive (this, default, default, this)
     for mp in paths:
         gb = mp.raw_bytes / 1e9
         arc = archives[mp.name]
-        t = {
-            "compress": cuda_ms(mp.compress, 3, 10),
-            "decompress": cuda_ms(lambda: mp.decompress(arc), 3, 10),
-            "compress_plain": cuda_ms(lambda: mp.compress(True), 1, 3),
-            "decompress_plain": cuda_ms(lambda: mp.decompress(arc, True), 1, 3),
-        }
+        if getattr(mp, "decode_only", False):
+            this = "fused" if mp.fused else "two-pass"
+            dflt = "two-pass" if mp.fused else "fused"
+            t = {}
+            for k, fn in ((f"decompress {this} 1", mp.decompress),
+                          (f"decompress {dflt} (default) 1", mp.decompress_default),
+                          (f"decompress {dflt} (default) 2", mp.decompress_default),
+                          (f"decompress {this} 2", mp.decompress)):
+                t[k] = cuda_ms(lambda fn=fn: fn(arc), 3, 10)
+            t["decompress_plain"] = cuda_ms(lambda: mp.decompress(arc, True), 1, 3)
+        else:
+            t = {
+                "compress": cuda_ms(mp.compress, 3, 10),
+                "decompress": cuda_ms(lambda: mp.decompress(arc), 3, 10),
+                "compress_plain": cuda_ms(lambda: mp.compress(True), 1, 3),
+                "decompress_plain": cuda_ms(lambda: mp.decompress(arc, True), 1, 3),
+            }
         for k, ms in t.items():
             print(f"{mp.name} {k}: {ms:.3f} ms, {gb / (ms / 1e3):.3f} GB/s "
                   f"({mp.raw_bytes / 2**20:.1f} MiB, median; {card})")

@@ -1,0 +1,115 @@
+// K14: table lookups, out = tables[row, clamp(idx, 0, H - 1)].
+//
+// dgt_chunked_lookup replaces the JAX package's ops/pallas/lookup.py
+// ::_lookup_kernel (entry chunked_lookup): one table per member, any number
+// of indices. Contract: dietgpu_fork_torch/ops/lookup.py
+// ::chunked_lookup_plain, the JAX package's chunked_lookup off the TPU. A
+// CTA stages its member's table in shared memory when it fits (H <=
+// kSharedWords, 48 KiB: the decoder's LUT is at most 4096 words) and
+// gathers from there; a larger table is read through global memory by the
+// same kernel. Indices go 4 a thread with 16 B loads and stores where the
+// rows are 16 B aligned, else one a thread.
+//
+// dgt_rowwise_lookup replaces ::_rowwise_kernel (entry rowwise_lookup): a
+// private table per row and at most 128 indices a row. Contract:
+// ops/lookup.py::rowwise_lookup_plain. One warp per row, 8 rows per CTA;
+// the gathers read through global memory (a row's table is larger than its
+// indices need).
+//
+// Bound on the card: device memory, the indices read and the values
+// written once (chunked); the rowwise gathers touch one 32 B sector per
+// distinct index.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxGridX = 1024;
+constexpr int kSharedWords = 12288;
+constexpr int kRowsPerCta = kThreads / 32;
+
+__device__ __forceinline__ uint32_t at(const uint32_t* t, int64_t h, int i) {
+  const int64_t c = i < 0 ? 0 : (i >= h ? h - 1 : i);
+  return t[c];
+}
+
+// kVec: 4 indices a thread (rows 16 B aligned, n % 4 == 0).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+chunked_lookup_kernel(const uint32_t* __restrict__ tables, int64_t h,
+                      const int32_t* __restrict__ idx, int64_t n,
+                      uint32_t* __restrict__ out) {
+  extern __shared__ uint32_t sh_tab[];
+  const int64_t b = blockIdx.y;
+  const uint32_t* tab = tables + b * h;
+  const bool staged = h <= kSharedWords;
+  if (staged) {
+    for (int64_t i = threadIdx.x; i < h; i += blockDim.x) sh_tab[i] = tab[i];
+    __syncthreads();
+    tab = sh_tab;
+  }
+  const int32_t* row = idx + b * n;
+  uint32_t* orow = out + b * n;
+  const int64_t per = kVec ? 4 : 1;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n / per;
+       j += (int64_t)gridDim.x * blockDim.x) {
+    if constexpr (kVec) {
+      const int4 i4 = reinterpret_cast<const int4*>(row)[j];
+      reinterpret_cast<uint4*>(orow)[j] = make_uint4(
+          at(tab, h, i4.x), at(tab, h, i4.y), at(tab, h, i4.z), at(tab, h, i4.w));
+    } else {
+      orow[j] = at(tab, h, row[j]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rowwise_lookup_kernel(const uint32_t* __restrict__ tables, int64_t r, int64_t h,
+                      const int32_t* __restrict__ idx, int64_t k,
+                      uint32_t* __restrict__ out) {
+  const int64_t row = (int64_t)blockIdx.x * kRowsPerCta + threadIdx.x / 32;
+  if (row >= r) return;
+  const uint32_t* tab = tables + row * h;
+  for (int64_t j = threadIdx.x % 32; j < k; j += 32) {
+    out[row * k + j] = at(tab, h, idx[row * k + j]);
+  }
+}
+
+}  // namespace
+
+// tables: u32[B, h] (h >= 1); idx: i32[B, n]. Writes out u32[B, n].
+// Returns cudaGetLastError() after the launch.
+extern "C" int dgt_chunked_lookup(const void* tables, long long batch,
+                                  long long h, const void* idx, long long n,
+                                  void* out, void* stream) {
+  const bool vec = n % 4 == 0 && (uintptr_t)idx % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  const long long work = vec ? n / 4 : n;
+  long long gx = (work + kThreads - 1) / kThreads;
+  if (gx < 1) gx = 1;
+  if (gx > kMaxGridX) gx = kMaxGridX;
+  dim3 grid((unsigned)gx, (unsigned)batch);
+  const size_t shmem = h <= kSharedWords ? (size_t)h * 4 : 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    chunked_lookup_kernel<true><<<grid, kThreads, shmem, s>>>(
+        (const uint32_t*)tables, h, (const int32_t*)idx, n, (uint32_t*)out);
+  } else {
+    chunked_lookup_kernel<false><<<grid, kThreads, shmem, s>>>(
+        (const uint32_t*)tables, h, (const int32_t*)idx, n, (uint32_t*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// tables: u32[r, h] (h >= 1); idx: i32[r, k] (k <= 128). Writes out
+// u32[r, k]. Returns cudaGetLastError() after the launch.
+extern "C" int dgt_rowwise_lookup(const void* tables, long long r, long long h,
+                                  const void* idx, long long k, void* out,
+                                  void* stream) {
+  const long long gx = (r + kRowsPerCta - 1) / kRowsPerCta;
+  rowwise_lookup_kernel<<<(unsigned)gx, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)tables, r, h, (const int32_t*)idx, k, (uint32_t*)out);
+  return (int)cudaGetLastError();
+}

@@ -1,5 +1,5 @@
-// K4 and K6: rANS decode, one walk with two epilogues, over the row-stream
-// (0xDB0D) layout or the classic (0xD00D) one.
+// K4, K6 and K12: rANS decode, one walk with three epilogues, over the
+// row-stream (0xDB0D) layout or the classic (0xD00D) one.
 //
 // K6 (dgt_rans_decode_rows) writes the decoded bytes. It replaces the JAX
 // package's ops/pallas/rans_decode_fused2.py::_decode_kernel2 in mode
@@ -13,6 +13,17 @@
 // ops/rans_decode.py::decode_join16_plain, decode_blocks_rows followed by
 // the 16-bit join_packed.
 //
+// K12 (dgt_rans_decode_join32) joins each decoded exponent byte with the
+// float's low 16 bits (sec1) and third byte (sec2) into an fp32 word,
+// ror1(low16 | sec2 byte << 16 | sym << 24). It replaces _decode_kernel2 in
+// mode JOIN_F32 (entry decode_join32_fused, call rans_decode_fused2.py:731).
+// Contract: ops/rans_decode.py::decode_join32_plain, decode_blocks_rows
+// followed by the fp32 join_packed over block-major sections. The walk
+// keeps each step's symbol bytes in shared memory (16 KiB a row) and joins
+// after the last step, 4 floats a thread with 8 B and 4 B loads and one
+// 16 B store: the 4 B/float output never enters the serial walk, whose
+// register set stays K6's (the TPU's fused fp32 spilled there).
+//
 // One CTA per row of 4 blocks = 128 threads with ONE reverse cursor over the
 // row's stream. The walk is bottom-aligned: at step i, block iteration
 // k = i - (128 - nsteps), so every active block of the row undoes the same
@@ -24,16 +35,19 @@
 //
 // Step i decodes position p = 32 * (127 - i) + lane of each block. K6 writes
 // the symbol byte there; K4 writes raw | sym << 8, rotated right by 1 within
-// 16 bits for bf16. Both write 0 at positions >= the block's decoded count.
+// 16 bits for bf16; K12 keeps the byte for its join. All write 0 at
+// positions >= the block's decoded count.
 //
-// Classic layout (dgt_rans_decode_blocks, dgt_rans_decode_join16_blocks):
-// replaces _decode_kernel2 with row_stream=False, in mode JOIN_NONE (call at
-// rans_decode_fused2.py:517) and JOIN_F16/BF16 (call at :620). Contracts:
-// ops/rans_decode.py::decode_blocks_plain and decode_join16_blocks_plain,
-// the JAX package's decode_blocks. Each warp reads its own block's stream,
-// staged at [B, nb, sw], with its own cursor: the reverse order is a suffix
-// of the warp's ballot alone, with no shared counts and no barrier a step.
-// The walk and both epilogues are the row layout's.
+// Classic layout (dgt_rans_decode_blocks, dgt_rans_decode_join16_blocks,
+// dgt_rans_decode_join32_blocks): replaces _decode_kernel2 with
+// row_stream=False, in mode JOIN_NONE (call at rans_decode_fused2.py:517),
+// JOIN_F16/BF16 (call at :620) and JOIN_F32 (call at :731). Contracts:
+// ops/rans_decode.py::decode_blocks_plain, decode_join16_blocks_plain and
+// decode_join32_blocks_plain, the JAX package's decode_blocks. Each warp
+// reads its own block's stream, staged at [B, nb, sw], with its own cursor:
+// the reverse order is a suffix of the warp's ballot alone, with no shared
+// counts and no barrier a step. The walk and the epilogues are the row
+// layout's.
 //
 // Bound on the card: the serial chain of 128 dependent steps (a shared LUT
 // read, the state update, one barrier) per row; occupancy comes from the
@@ -54,19 +68,32 @@ constexpr int kSteps = 128;
 constexpr int kBlockBytes = 4096;
 constexpr int kMaxLut = 1 << 11;
 
-// kJoin16: K4's epilogue (raw bytes in, u16 floats out); else K6's (u8 out).
+// The epilogue: K6 writes u8 symbols, K4 u16 floats joined with the raw
+// bytes, K12 u32 floats joined with the two raw sections after the walk.
+enum Epilogue { kBytes = 0, kJoin16 = 1, kJoin32 = 2 };
+
+__device__ __forceinline__ uint32_t byte_of(uint32_t w, int k) {
+  return (w >> (8 * k)) & 0xFFu;
+}
+
 // kClassic: streams u32[B, nb, sw], one per block; else u32[B, nr, sw].
-template <bool kJoin16, bool kClassic>
+// raw: K4's u8[B, nb, 4096] raw bytes, K12's u32[B, nb, 2048] sec1 words;
+// sec2: K12's u32[B, nb, 1024] third-byte words.
+template <int kEpi, bool kClassic>
 __global__ void __launch_bounds__(kThreads)
 rans_decode_kernel(const uint32_t* __restrict__ streams, int64_t sw,
                    const int32_t* __restrict__ comp_w,
                    const int32_t* __restrict__ uncomp_w,
                    const uint32_t* __restrict__ states,
                    const uint32_t* __restrict__ lut, int prob_bits,
-                   const uint8_t* __restrict__ raw, int64_t nb, int64_t nr,
+                   const void* __restrict__ raw,
+                   const uint32_t* __restrict__ sec2, int64_t nb, int64_t nr,
                    int bf16, void* __restrict__ out) {
   __shared__ uint32_t sh_lut[kMaxLut];
+  // K12's symbols: byte p of block w of the row at [w * 4096 + p]
+  __shared__ uint32_t sh_sym[kEpi == kJoin32 ? kRowBlocks * kBlockBytes / 4 : 1];
   __shared__ int sh_cw[kRowBlocks];
+  __shared__ int sh_uw[kRowBlocks];
   __shared__ int sh_cnt[2][kRowBlocks];
   const int64_t row = blockIdx.x;
   const int64_t b = blockIdx.y;
@@ -81,7 +108,10 @@ rans_decode_kernel(const uint32_t* __restrict__ streams, int64_t sw,
   const bool live = gb < nb;
   const int64_t blk_idx = b * nb + (live ? gb : 0);
   const int uw = live ? uncomp_w[blk_idx] : 0;
-  if (lane == 0) sh_cw[blk] = live ? comp_w[blk_idx] : 0;
+  if (lane == 0) {
+    sh_cw[blk] = live ? comp_w[blk_idx] : 0;
+    sh_uw[blk] = uw;
+  }
   __syncthreads();
 
   int ptr = 0;  // one past the stream's last unread u16 word
@@ -94,7 +124,8 @@ rans_decode_kernel(const uint32_t* __restrict__ streams, int64_t sw,
   const int tail = uw > 0 ? ((uw - 1) % kWarp) + 1 : kWarp;
   const uint32_t smask = (uint32_t)nslots - 1u;
   uint32_t state = live ? states[blk_idx * kWarp + lane] : 0u;
-  const uint8_t* rawb = kJoin16 ? raw + blk_idx * kBlockBytes : nullptr;
+  const uint8_t* rawb =
+      kEpi == kJoin16 ? (const uint8_t*)raw + blk_idx * kBlockBytes : nullptr;
   const uint32_t* srow = streams + (kClassic ? blk_idx : b * nr + row) * sw;
   const unsigned at_or_above = ~((1u << lane) - 1u);
 
@@ -108,13 +139,15 @@ rans_decode_kernel(const uint32_t* __restrict__ streams, int64_t sw,
       const uint32_t pdf = (ent >> 8) & 0xFFFu;
       state = pdf * (state >> prob_bits) + (ent >> 20);
       v = ent & 0xFFu;
-      if constexpr (kJoin16) {
+      if constexpr (kEpi == kJoin16) {
         v = (uint32_t)rawb[p] | (v << 8);
         if (bf16) v = ((v >> 1) | (v << 15)) & 0xFFFFu;
       }
     }
-    if (live) {
-      if constexpr (kJoin16) {
+    if constexpr (kEpi == kJoin32) {
+      ((uint8_t*)sh_sym)[blk * kBlockBytes + p] = (uint8_t)v;
+    } else if (live) {
+      if constexpr (kEpi == kJoin16) {
         ((uint16_t*)out)[blk_idx * kBlockBytes + p] = (uint16_t)v;
       } else {
         ((uint8_t*)out)[blk_idx * kBlockBytes + p] = (uint8_t)v;
@@ -144,20 +177,54 @@ rans_decode_kernel(const uint32_t* __restrict__ streams, int64_t sw,
     }
     ptr -= total;
   }
+
+  if constexpr (kEpi == kJoin32) {
+    // the row's 4 blocks, each as 1024 groups of 4 floats: symbol word j of
+    // the block, sec1 words 2j and 2j + 1, sec2 word j -> out words 4j..4j+3
+    __syncthreads();
+    const uint32_t* sec1 = (const uint32_t*)raw;
+    for (int w = 0; w < kRowBlocks; ++w) {
+      const int64_t g = row * kRowBlocks + w;
+      if (g >= nb) break;
+      const int64_t bi = b * nb + g;
+      const int u = sh_uw[w];
+      uint4* o = (uint4*)out + bi * (kBlockBytes / 4);
+      for (int j = tid; j < kBlockBytes / 4; j += kThreads) {
+        uint4 res = make_uint4(0u, 0u, 0u, 0u);
+        if (4 * j < u) {
+          const uint2 s1 = ((const uint2*)sec1)[bi * (kBlockBytes / 4) + j];
+          const uint32_t t = sec2[bi * (kBlockBytes / 4) + j];
+          const uint32_t e = sh_sym[w * (kBlockBytes / 4) + j];
+          const uint32_t low[4] = {s1.x & 0xFFFFu, s1.x >> 16, s1.y & 0xFFFFu,
+                                   s1.y >> 16};
+          uint32_t f[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint32_t r =
+                low[q] | (byte_of(t, q) << 16) | (byte_of(e, q) << 24);
+            f[q] = 4 * j + q < u ? (r >> 1) | (r << 31) : 0u;
+          }
+          res = make_uint4(f[0], f[1], f[2], f[3]);
+        }
+        o[j] = res;
+      }
+    }
+  }
 }
 
-template <bool kJoin16, bool kClassic>
+template <int kEpi, bool kClassic>
 int launch(const void* streams, long long sw, const void* comp_w,
            const void* uncomp_w, const void* states, const void* lut,
-           int prob_bits, const void* raw, long long batch, long long nb,
-           int bf16, void* out, void* stream) {
+           int prob_bits, const void* raw, const void* sec2, long long batch,
+           long long nb, int bf16, void* out, void* stream) {
   const long long nr = (nb + kRowBlocks - 1) / kRowBlocks;
   dim3 grid((unsigned)nr, (unsigned)batch);
-  rans_decode_kernel<kJoin16, kClassic>
+  rans_decode_kernel<kEpi, kClassic>
       <<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)streams, sw, (const int32_t*)comp_w,
       (const int32_t*)uncomp_w, (const uint32_t*)states,
-      (const uint32_t*)lut, prob_bits, (const uint8_t*)raw, nb, nr, bf16, out);
+      (const uint32_t*)lut, prob_bits, raw, (const uint32_t*)sec2, nb, nr,
+      bf16, out);
   return (int)cudaGetLastError();
 }
 
@@ -172,8 +239,9 @@ extern "C" int dgt_rans_decode_rows(const void* streams, long long sw,
                                     const void* states, const void* lut,
                                     int prob_bits, long long batch,
                                     long long nb, void* out, void* stream) {
-  return launch<false, false>(streams, sw, comp_w, uncomp_w, states, lut,
-                              prob_bits, nullptr, batch, nb, 0, out, stream);
+  return launch<kBytes, false>(streams, sw, comp_w, uncomp_w, states, lut,
+                               prob_bits, nullptr, nullptr, batch, nb, 0, out,
+                               stream);
 }
 
 // As dgt_rans_decode_rows, plus raw: u8[B, nb, 4096] block-major raw bytes.
@@ -184,8 +252,23 @@ extern "C" int dgt_rans_decode_join16(const void* streams, long long sw,
                                       int prob_bits, const void* raw,
                                       long long batch, long long nb, int bf16,
                                       void* out, void* stream) {
-  return launch<true, false>(streams, sw, comp_w, uncomp_w, states, lut,
-                             prob_bits, raw, batch, nb, bf16, out, stream);
+  return launch<kJoin16, false>(streams, sw, comp_w, uncomp_w, states, lut,
+                                prob_bits, raw, nullptr, batch, nb, bf16, out,
+                                stream);
+}
+
+// As dgt_rans_decode_rows, plus sec1: u32[B, nb, 2048] block-major low-u16
+// pairs (8 B aligned) and sec2: u32[B, nb, 1024] block-major third bytes.
+// Writes out u32[B, nb, 4096] (16 B aligned): fp32 words.
+extern "C" int dgt_rans_decode_join32(const void* streams, long long sw,
+                                      const void* comp_w, const void* uncomp_w,
+                                      const void* states, const void* lut,
+                                      int prob_bits, const void* sec1,
+                                      const void* sec2, long long batch,
+                                      long long nb, void* out, void* stream) {
+  return launch<kJoin32, false>(streams, sw, comp_w, uncomp_w, states, lut,
+                                prob_bits, sec1, sec2, batch, nb, 0, out,
+                                stream);
 }
 
 // As dgt_rans_decode_rows, in the classic layout: streams u32[B, nb, sw].
@@ -194,8 +277,9 @@ extern "C" int dgt_rans_decode_blocks(const void* streams, long long sw,
                                       const void* states, const void* lut,
                                       int prob_bits, long long batch,
                                       long long nb, void* out, void* stream) {
-  return launch<false, true>(streams, sw, comp_w, uncomp_w, states, lut,
-                             prob_bits, nullptr, batch, nb, 0, out, stream);
+  return launch<kBytes, true>(streams, sw, comp_w, uncomp_w, states, lut,
+                              prob_bits, nullptr, nullptr, batch, nb, 0, out,
+                              stream);
 }
 
 // As dgt_rans_decode_join16, in the classic layout: streams u32[B, nb, sw].
@@ -204,6 +288,18 @@ extern "C" int dgt_rans_decode_join16_blocks(
     const void* uncomp_w, const void* states, const void* lut, int prob_bits,
     const void* raw, long long batch, long long nb, int bf16, void* out,
     void* stream) {
-  return launch<true, true>(streams, sw, comp_w, uncomp_w, states, lut,
-                            prob_bits, raw, batch, nb, bf16, out, stream);
+  return launch<kJoin16, true>(streams, sw, comp_w, uncomp_w, states, lut,
+                               prob_bits, raw, nullptr, batch, nb, bf16, out,
+                               stream);
+}
+
+// As dgt_rans_decode_join32, in the classic layout: streams u32[B, nb, sw].
+extern "C" int dgt_rans_decode_join32_blocks(
+    const void* streams, long long sw, const void* comp_w,
+    const void* uncomp_w, const void* states, const void* lut, int prob_bits,
+    const void* sec1, const void* sec2, long long batch, long long nb,
+    void* out, void* stream) {
+  return launch<kJoin32, true>(streams, sw, comp_w, uncomp_w, states, lut,
+                               prob_bits, sec1, sec2, batch, nb, 0, out,
+                               stream);
 }

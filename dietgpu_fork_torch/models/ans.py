@@ -46,6 +46,10 @@ from ..ops.rans_decode import (
     decode_join16_blocks,
     decode_join16_blocks_plain,
     decode_join16_plain,
+    decode_join32,
+    decode_join32_blocks,
+    decode_join32_blocks_plain,
+    decode_join32_plain,
     decode_rows,
     decode_rows_plain,
 )
@@ -483,6 +487,42 @@ def ans_decode_join16_core(
                  raw32_blocks, prob_bits, bf16)
     OW = _ceil_div(2 * out_floats, 4)
     return out.reshape(B, NB * 2048)[:, :OW], st.success, st.n, st.csum
+
+
+def ans_decode_join32_core(
+    comp32: torch.Tensor,
+    base32: torch.Tensor,
+    sec1_blocks: torch.Tensor,
+    sec2_blocks: torch.Tensor,
+    out_floats: int,
+    prob_bits: int,
+    capacities: Optional[torch.Tensor] = None,
+    native: bool = True,
+    plain: bool = False,
+):
+    """Decode the fp32 exponent-plane ANS archives at word offsets base32
+    and join them with the block-major raw sections sec1_blocks
+    (int32[B, NB, 2048], low-u16 pairs) and sec2_blocks (int32[B, NB, 1024],
+    third bytes) into fp32 words (the JAX package's
+    ``models/ans.py:608-640``).
+
+    Returns (words32 int32[B, out_floats], success bool[B], n int64[B],
+    csum int64[B]). words32 is not masked by success, as in
+    ``ans_decode_join16_core``."""
+    st = _ans_parse_and_stage(
+        comp32, base32, out_floats, capacities, prob_bits, native, plain
+    )
+    B = comp32.shape[0]
+    NB = st.comp_w.shape[1]
+    lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
+    if native:
+        decode = decode_join32_plain if plain else decode_join32
+    else:
+        decode = decode_join32_blocks_plain if plain else decode_join32_blocks
+    out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut,
+                 sec1_blocks, sec2_blocks, prob_bits)
+    return (out.reshape(B, NB * BLOCK_SIZE)[:, :out_floats], st.success, st.n,
+            st.csum)
 
 
 def ans_decode_padded(

@@ -8,13 +8,15 @@ A port of the JAX package's ``models/float_codec.py``:
   launch for both fp64 planes) -> one K3 merge placing the float header,
   the raw sections and the ANS archives' runs into each member's archive
   row;
-* decompress, 16-bit: float header parse -> K3 stages the raw section
-  block-major -> ANS parse, validation and two K3 staging merges -> K4
-  decodes and joins into float words (the JAX package's fused branch);
-* decompress, fp32 and fp64: float header parse -> per plane, ANS parse,
-  validation, staging and a K6 decode to bytes -> one K3 merge staging both
-  raw sections -> K7 joins planes and sections into float words (the JAX
-  package's default two-pass branch);
+* decompress, fused (the default for 16-bit types): float header parse ->
+  K3 stages the raw section(s) block-major -> ANS parse, validation and two
+  K3 staging merges -> K4 (16-bit) or K12 (fp32, ``fused=True``) decodes
+  and joins into float words (the JAX package's fused branches);
+* decompress, two-pass (the default for fp32 and fp64): float header parse
+  -> per plane, ANS parse, validation, staging and a K6 decode to bytes ->
+  one K3 merge staging the raw section(s) -> K13 (16-bit, ``fused=False``)
+  or K7 joins planes and sections into float words (the JAX package's
+  two-pass branch);
 * verify_checksum folds the XOR of the decoded bytes in plain torch
   (the JAX package's ``float_codec.py:453-457``).
 
@@ -52,6 +54,8 @@ from ..ops.bitmap_pack import floats_capacity
 from ..ops.bitops import from_u32, to_i32, to_u32
 from ..ops.checksum import checksum_packed
 from ..ops.float_split import (
+    join16_rows,
+    join16_rows_plain,
     join_wide,
     join_wide_plain,
     split16_hist,
@@ -67,6 +71,7 @@ from .ans import (
     SRC_STREAMS,
     ans_decode_core,
     ans_decode_join16_core,
+    ans_decode_join32_core,
     ans_encode_sections,
 )
 
@@ -236,6 +241,7 @@ def float_decompress_core(
     verify_checksum: bool = False,
     native: bool = True,
     plain: bool = False,
+    fused: Optional[bool] = None,
 ):
     """Decompress float archives at per-member word offsets base32 of
     comp32's rows (int32[B, CW]).
@@ -247,9 +253,19 @@ def float_decompress_core(
     zeros unless verify_checksum). A member fails, raising nothing, on a
     wrong header, a failed ANS validation, or n above its capacity (default
     out_floats). native: the embedded ANS layout (the API reads it from the
-    archive). plain=True as in float_compress_core.
+    archive). plain=True as in float_compress_core. fused picks the decode
+    formulation: True decodes and joins in one kernel (K4 for 16-bit types,
+    K12 for fp32; fp64 has none and raises ValueError), False decodes the
+    exponent planes to bytes and joins in a second pass (K6, then K13 or
+    K7), None takes the JAX package's choice on its kernel path: fused for
+    16-bit types, two-pass for fp32 and fp64. Every choice returns the same
+    words.
     """
     ft = _check_type(float_type)
+    if fused is None:
+        fused = ft in _FLOAT16_TYPES
+    if fused and ft == FloatType.FLOAT64:
+        raise ValueError("fp64 has no fused decode: pass fused=False or None")
     dev = comp32.device
     comp32 = comp32.contiguous()
     B, CW = comp32.shape
@@ -281,63 +297,77 @@ def float_decompress_core(
     o_s2 = o_s1 + torch.where(is_al, _align_section(s1w), s1w)
     ans_base = base + o_s2 + torch.where(is_al, _align_section(s2w), s2w)
     b_ar = torch.arange(B, dtype=torch.int64, device=dev)
-    merge = runs_merge_plain if plain else runs_merge
-
-    if ft in _FLOAT16_TYPES:
-        # raw section staged block-major: 1024 words per 4096-float block
-        NB = max(1, -(-out_floats // BLOCK_SIZE))
-        raw32 = merge(
-            [comp32.reshape(-1)],
-            b_ar * (NB * 1024),
-            torch.zeros(B, dtype=torch.int32, device=dev),
-            b_ar * CW + base + o_s1,
-            s1w.clamp(max=NB * 1024),
-            B * NB * 1024,
-        ).reshape(B, NB, 1024)
-        words32, ok, psize, _ = ans_decode_join16_core(
-            comp32, ans_base, raw32, out_floats, prob_bits,
-            ft == FloatType.BFLOAT16, capacities, native, plain,
-        )
-        success = success & ok & (psize == n)
-        words32 = torch.where(success[:, None], words32, 0)
-        return (words32, success, n, csum_arch,
-                _decoded_checksum(words32, n, ft, verify_checksum))
-
-    # one decode per exponent plane; the second archive starts first_seg
-    # bytes after the first
-    E = max(-(-out_floats // 4), 1)
-    planes = []
-    for p in range(FLOAT_NUM_COMP_SEGMENTS[ft]):
-        plane, ok, psize, _ = ans_decode_core(
-            comp32, ans_base + p * (first_seg >> 2), out_floats, prob_bits,
-            capacities, native, plain,
-        )
-        if plane.shape[1] < E:  # out_floats == 0
-            plane = F.pad(plane, (0, E - plane.shape[1]))
-        planes.append(plane)
-        success = success & ok & (psize == n)
-
-    # both raw sections staged by one merge, each row at least as wide as
-    # the join reads
-    k1, k2 = (2, 1) if ft == FloatType.FLOAT32 else (4, 2)
-    C1, C2 = (max(c, k * E) for c, k in
-              zip(_section_word_counts(out_floats, ft), (k1, k2)))
     abs_base = b_ar * CW + base
-    stage = merge(
-        [comp32.reshape(-1)],
-        torch.cat([b_ar * C1, B * C1 + b_ar * C2]),
-        torch.zeros(2 * B, dtype=torch.int32, device=dev),
-        torch.cat([abs_base + o_s1, abs_base + o_s2]),
-        torch.cat([s1w.clamp(max=C1), s2w.clamp(max=C2)]),
-        B * (C1 + C2),
-    )
-    sec1 = stage[: B * C1].reshape(B, C1)
-    sec2 = stage[B * C1:].reshape(B, C2)
+    merge = runs_merge_plain if plain else runs_merge
+    E = max(-(-out_floats // 4), 1)
 
-    # planes and sections are zero past n, so the join is too; one select
-    # zeroes failed members
-    join = join_wide_plain if plain else join_wide
-    words32 = torch.where(success[:, None], join(planes, sec1, sec2, ft), 0)
+    def stage(widths):
+        """One K3 merge staging the raw sections, zero padded, each member's
+        row of section i widths[i] words wide: a [B, width] tensor each."""
+        offs = [abs_base + o_s1, abs_base + o_s2][: len(widths)]
+        counts = [s1w, s2w][: len(widths)]
+        dst = torch.cat([sum(widths[:i]) * B + b_ar * w
+                         for i, w in enumerate(widths)])
+        out = merge(
+            [comp32.reshape(-1)], dst,
+            torch.zeros(len(widths) * B, dtype=torch.int32, device=dev),
+            torch.cat(offs),
+            torch.cat([c.clamp(max=w) for c, w in zip(counts, widths)]),
+            B * sum(widths),
+        )
+        return [out[B * sum(widths[:i]): B * sum(widths[: i + 1])].reshape(B, w)
+                for i, w in enumerate(widths)]
+
+    if fused:
+        # raw sections staged block-major: per 4096-float block 1024 raw
+        # words (16-bit), or 2048 sec1 and 1024 sec2 words (fp32)
+        NB = max(1, -(-out_floats // BLOCK_SIZE))
+        if ft in _FLOAT16_TYPES:
+            (raw32,) = stage([NB * 1024])
+            words32, ok, psize, _ = ans_decode_join16_core(
+                comp32, ans_base, raw32.reshape(B, NB, 1024), out_floats,
+                prob_bits, ft == FloatType.BFLOAT16, capacities, native, plain,
+            )
+        else:
+            sec1, sec2 = stage([NB * 2048, NB * 1024])
+            words32, ok, psize, _ = ans_decode_join32_core(
+                comp32, ans_base, sec1.reshape(B, NB, 2048),
+                sec2.reshape(B, NB, 1024), out_floats, prob_bits, capacities,
+                native, plain,
+            )
+            if 4 * E > out_floats:  # the two-pass width, 4E words
+                words32 = F.pad(words32, (0, 4 * E - out_floats))
+        success = success & ok & (psize == n)
+    else:
+        # one decode per exponent plane; the second archive starts
+        # first_seg bytes after the first
+        planes = []
+        for p in range(FLOAT_NUM_COMP_SEGMENTS[ft]):
+            plane, ok, psize, _ = ans_decode_core(
+                comp32, ans_base + p * (first_seg >> 2), out_floats, prob_bits,
+                capacities, native, plain,
+            )
+            if plane.shape[1] < E:  # out_floats == 0
+                plane = F.pad(plane, (0, E - plane.shape[1]))
+            planes.append(plane)
+            success = success & ok & (psize == n)
+        # the raw section(s) staged by one merge, each row at least as wide
+        # as the join reads
+        if ft in _FLOAT16_TYPES:
+            (raw32,) = stage([max(_section_word_counts(out_floats, ft)[0], E)])
+            join16 = join16_rows_plain if plain else join16_rows
+            words32 = join16(planes[0], raw32, ft == FloatType.BFLOAT16)
+            words32 = words32[:, : -(-out_floats // 2)]
+        else:
+            ks = (2, 1) if ft == FloatType.FLOAT32 else (4, 2)
+            sec1, sec2 = stage([max(c, k * E) for c, k in
+                                zip(_section_word_counts(out_floats, ft), ks)])
+            join = join_wide_plain if plain else join_wide
+            words32 = join(planes, sec1, sec2, ft)
+
+    # planes, sections and the fused decodes are zero past n, so the words
+    # are too; one select zeroes failed members
+    words32 = torch.where(success[:, None], words32, 0)
     return (words32, success, n, csum_arch,
             _decoded_checksum(words32, n, ft, verify_checksum))
 

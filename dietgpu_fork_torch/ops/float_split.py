@@ -1,6 +1,6 @@
 """Float split and join, with the split's byte histograms and XOR
 checksum: kernels K1 (16-bit split), K5 (fp32/fp64 split), K7 (fp32/fp64
-join) and their plain versions.
+join), K13 (16-bit join) and their plain versions.
 
 Layouts (little-endian bytes within each u32 word, as in the archive and
 in the JAX package's portable ``ops/float_split.py:16-23, 80-115``):
@@ -16,10 +16,13 @@ in the JAX package's portable ``ops/float_split.py:16-23, 80-115``):
   word; sec1 = v_lo, one word per float; sec2 = the low 16 bits of v_hi,
   2 floats per word.
 
-Raw-section bytes at or past a member's count are zeroed by the split.
+Raw-section bytes at or past a member's count are zeroed by the split
+with histogram; ``split_packed`` (the split alone, K1 and K5 without
+histogram: the JAX package's ``split_packed``) keeps them, capacity-sized.
 
-``split16_hist``, ``split_wide_hist`` and ``join_wide`` send CUDA tensors
-to the kernels (``csrc/split16_hist.cu``, ``csrc/split_wide_hist.cu``,
+``split16_hist``, ``split_wide_hist``, ``split16``, ``split_wide``,
+``join_wide`` and ``join16_rows`` send CUDA tensors to the kernels
+(``csrc/split16_hist.cu``, ``csrc/split_wide_hist.cu``,
 ``csrc/join_wide.cu``) and CPU tensors to their plain versions, built
 from the JAX package's ``split_packed`` + ``histogram_packed`` +
 ``checksum_packed`` + ``mask_packed_bytes``, and ``join_packed``.
@@ -80,14 +83,7 @@ def _hist(x: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
 def _check_split_args(data32, n, row_mult: int = 2):
     """row_mult: the words of one group of 4 floats (one exponent-plane
     word), which is the float's byte width."""
-    if data32.dtype != torch.int32 or data32.dim() != 2:
-        raise TypeError("data32 must be a 2-D torch.int32 tensor of u32 words")
-    if not data32.is_contiguous():
-        raise ValueError("data32 must be contiguous")
-    if data32.shape[1] % row_mult:
-        raise ValueError(
-            f"data32 needs a row width that is a multiple of {row_mult}, "
-            f"got {data32.shape[1]}")
+    _check_rows(data32, row_mult)
     if n.dtype != torch.int32 or n.shape != (data32.shape[0],):
         raise TypeError("n must be torch.int32 of shape [B]")
     if not n.is_contiguous():
@@ -116,15 +112,48 @@ def split16_hist_plain(data32, n, bf16: bool):
     """Plain PyTorch version of K1; runs on any device."""
     _check_split_args(data32, n)
     x = to_u32(data32)
-    r = _rotl16x2(x) if bf16 else x
-    we, wo = r[:, 0::2], r[:, 1::2]
-    exp = _pack4((we >> 8) & 0xFF, we >> 24, (wo >> 8) & 0xFF, wo >> 24)
-    raw = _pack4(we & 0xFF, (we >> 16) & 0xFF, wo & 0xFF, (wo >> 16) & 0xFF)
+    exp, raw = _split16(x, bf16)
     n64 = n.to(torch.int64)
     raw = mask_packed_bytes(raw, n64)
     hist = _hist(exp, n64)
     csum = checksum_packed(x, 2 * n64)
     return from_u32(exp), from_u32(raw), hist, csum.to(torch.int32)
+
+
+def _split16(x, bf16: bool):
+    """u32 rows (int64) -> (exponent plane, raw section), int64 words."""
+    r = _rotl16x2(x) if bf16 else x
+    we, wo = r[:, 0::2], r[:, 1::2]
+    exp = _pack4((we >> 8) & 0xFF, we >> 24, (wo >> 8) & 0xFF, wo >> 24)
+    raw = _pack4(we & 0xFF, (we >> 16) & 0xFF, wo & 0xFF, (wo >> 16) & 0xFF)
+    return exp, raw
+
+
+def _check_rows(data32, row_mult: int):
+    if data32.dtype != torch.int32 or data32.dim() != 2:
+        raise TypeError("data32 must be a 2-D torch.int32 tensor of u32 words")
+    if not data32.is_contiguous():
+        raise ValueError("data32 must be contiguous")
+    if data32.shape[1] % row_mult:
+        raise ValueError(
+            f"data32 needs a row width that is a multiple of {row_mult}, "
+            f"got {data32.shape[1]}")
+
+
+def split16(data32: torch.Tensor, bf16: bool):
+    """Split u32-packed 16-bit float rows, capacity-sized: data32
+    int32[B, W32] (W32 even) -> (exp, raw), each int32[B, W32/2]. No
+    histogram, checksum or tail mask."""
+    _check_rows(data32, 2)
+    if use_kernels(data32):
+        return K.split16(data32, bf16)
+    return split16_plain(data32, bf16)
+
+
+def split16_plain(data32, bf16: bool):
+    """Plain PyTorch version of K1 without histogram; runs on any device."""
+    _check_rows(data32, 2)
+    return tuple(from_u32(t) for t in _split16(to_u32(data32), bf16))
 
 
 def join16(exp_bytes: torch.Tensor, raw_bytes: torch.Tensor, bf16: bool):
@@ -167,23 +196,8 @@ def split_wide_hist_plain(data32, n, float_type):
     _check_split_args(data32, n, FLOAT_WORD_SIZE[ft])
     x = to_u32(data32)
     n64 = n.to(torch.int64)
-    if ft == FloatType.FLOAT32:
-        r = ((x << 1) | (x >> 31)) & M32
-        w = [r[:, k::4] for k in range(4)]
-        planes = [_pack4(*(wk >> 24 for wk in w))]
-        sec1 = (r[:, 0::2] & 0xFFFF) | ((r[:, 1::2] & 0xFFFF) << 16)
-        sec2 = _pack4(*(_b(wk, 2) for wk in w))
-        nb1, nb2 = 2 * n64, n64
-    else:
-        lo, hi = x[:, 0::2], x[:, 1::2]
-        v_hi = ((hi << 1) | (lo >> 31)) & M32
-        v_lo = ((lo << 1) | (hi >> 31)) & M32
-        h = [v_hi[:, k::4] for k in range(4)]
-        planes = [_pack4(*(hk >> 24 for hk in h)),
-                  _pack4(*(_b(hk, 2) for hk in h))]
-        sec1 = v_lo
-        sec2 = (v_hi[:, 0::2] & 0xFFFF) | ((v_hi[:, 1::2] & 0xFFFF) << 16)
-        nb1, nb2 = 4 * n64, 2 * n64
+    planes, sec1, sec2 = _split_wide(x, ft)
+    nb1, nb2 = (2 * n64, n64) if ft == FloatType.FLOAT32 else (4 * n64, 2 * n64)
     hist = torch.cat([_hist(p, n64) for p in planes])
     csum = checksum_packed(x, FLOAT_WORD_SIZE[ft] * n64)
     return (
@@ -193,6 +207,102 @@ def split_wide_hist_plain(data32, n, float_type):
         hist,
         csum.to(torch.int32),
     )
+
+
+def _split_wide(x, ft: FloatType):
+    """u32 rows (int64) -> (planes, sec1, sec2), int64 words."""
+    if ft == FloatType.FLOAT32:
+        r = ((x << 1) | (x >> 31)) & M32
+        w = [r[:, k::4] for k in range(4)]
+        planes = [_pack4(*(wk >> 24 for wk in w))]
+        sec1 = (r[:, 0::2] & 0xFFFF) | ((r[:, 1::2] & 0xFFFF) << 16)
+        sec2 = _pack4(*(_b(wk, 2) for wk in w))
+        return planes, sec1, sec2
+    lo, hi = x[:, 0::2], x[:, 1::2]
+    v_hi = ((hi << 1) | (lo >> 31)) & M32
+    v_lo = ((lo << 1) | (hi >> 31)) & M32
+    h = [v_hi[:, k::4] for k in range(4)]
+    planes = [_pack4(*(hk >> 24 for hk in h)),
+              _pack4(*(_b(hk, 2) for hk in h))]
+    sec2 = (v_hi[:, 0::2] & 0xFFFF) | ((v_hi[:, 1::2] & 0xFFFF) << 16)
+    return planes, v_lo, sec2
+
+
+def split_wide(data32: torch.Tensor, float_type):
+    """Split u32-packed fp32 or fp64 rows, capacity-sized: data32 as
+    ``split_wide_hist`` -> (exp int32[P*B, E], sec1, sec2) as there, with
+    no histogram, checksum or tail mask."""
+    ft = _wide_type(float_type)
+    _check_rows(data32, FLOAT_WORD_SIZE[ft])
+    if use_kernels(data32):
+        return K.split_wide(data32, ft)
+    return split_wide_plain(data32, ft)
+
+
+def split_wide_plain(data32, float_type):
+    """Plain PyTorch version of K5 without histograms; runs on any device."""
+    ft = _wide_type(float_type)
+    _check_rows(data32, FLOAT_WORD_SIZE[ft])
+    planes, sec1, sec2 = _split_wide(to_u32(data32), ft)
+    return from_u32(torch.cat(planes)), from_u32(sec1), from_u32(sec2)
+
+
+def _split_packed(data32, float_type, s16, swide):
+    ft = FloatType(float_type)
+    if ft in (FloatType.FLOAT16, FloatType.BFLOAT16):
+        exp, raw = s16(data32, ft == FloatType.BFLOAT16)
+        return [exp], [raw]
+    exp, sec1, sec2 = swide(data32, ft)
+    P = 2 if ft == FloatType.FLOAT64 else 1
+    return list(exp.reshape(P, data32.shape[0], exp.shape[1])), [sec1, sec2]
+
+
+def split_packed(data32: torch.Tensor, float_type):
+    """Split u32-packed float rows into (exponent planes, raw sections), the
+    JAX package's ``split_packed``: capacity-sized, with content past a
+    member's count kept (callers mask or ignore it). data32: int32[B, W32]
+    with W32 % 2 == 0 (fp16, bf16), % 4 (fp32) or % 8 (fp64). Planes:
+    [exp] or, for fp64, [exp0, exp1], each int32[B, W32 / (2 word size)];
+    sections: [raw] int32[B, W32/2] for 16-bit types, [sec1 int32[B, W32/2],
+    sec2 int32[B, W32/4]] for fp32 and fp64."""
+    return _split_packed(data32, float_type, split16, split_wide)
+
+
+def split_packed_plain(data32, float_type):
+    """``split_packed`` by the plain versions; runs on any device."""
+    return _split_packed(data32, float_type, split16_plain, split_wide_plain)
+
+
+def _check_join16_args(exp, raw):
+    for name, t in (("exp", exp), ("raw", raw)):
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise TypeError(f"{name} must be a 2-D torch.int32 tensor")
+        if t.stride(1) != 1:
+            raise ValueError(f"{name} rows must be contiguous")
+    B, E = exp.shape
+    if raw.shape[0] != B or raw.shape[1] < E:
+        raise ValueError(f"raw needs shape [{B}, >= {E}], got {tuple(raw.shape)}")
+    if raw.device != exp.device:
+        raise ValueError("exp and raw must lie on one device")
+
+
+def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
+    """Join 16-bit exponent planes and raw sections into float words, the
+    inverse of ``split16``: exp int32[B, E], raw int32 rows of at least E
+    words (only the first E read; rows need contiguous words, not contiguous
+    tensors) -> int32[B, 2E]."""
+    _check_join16_args(exp, raw)
+    if use_kernels(exp):
+        return K.join16_rows(exp, raw, bf16)
+    return join16_rows_plain(exp, raw, bf16)
+
+
+def join16_rows_plain(exp, raw, bf16: bool):
+    """Plain PyTorch version of K13; runs on any device."""
+    _check_join16_args(exp, raw)
+    E = exp.shape[1]
+    return from_u32(join16(unpack_bytes(to_u32(exp)),
+                           unpack_bytes(to_u32(raw[:, :E])), bf16))
 
 
 def _check_join_args(planes, sec1, sec2, ft):

@@ -15,6 +15,12 @@ is not ported. A read past the end of a source (a corrupt archive) takes
 that source's last word; a ref outside the sources gives zeros.
 ``_runs_merge_ref`` clips into its sources laid end to end, so the two
 agree on such reads for a single source.
+
+K3 replaces both Pallas merges: ``merge.py:305`` ``_merge2_kernel`` (the
+multi-source merge) and, called with one source, ``merge.py:74``
+``_merge_kernel`` (the v1 single-source merge, entry ``_runs_merge_tpu``),
+whose contract is this one with ``srcs = [src_flat]`` and every ref 0.
+Every decode path of the port stages through such single-source calls.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """rANS decode: kernel K6 (to packed bytes), kernel K4 (fused with the
-16-bit float join), each in the row-stream (0xDB0D) and the classic
-(0xD00D) layout, and their plain versions, which share one walk.
+16-bit float join), kernel K12 (fused with the fp32 join), each in the
+row-stream (0xDB0D) and the classic (0xD00D) layout, and their plain
+versions, which share one walk.
 
 Row layout: each row of 4 blocks shares one reverse cursor over its
 stream. The walk is bottom-aligned (block iteration k = i - (128 - nsteps)
@@ -19,6 +20,11 @@ Symbols at or past a block's decoded count are 0.
   with its raw byte (``float_split.py:193-202``): out = raw | sym << 8,
   rotated right by 1 within 16 bits for bf16, and 0 at positions at or
   past a block's count.
+* ``decode_join32`` / ``decode_join32_blocks`` join each exponent byte
+  with the float's low 16 bits and third byte from the block-major raw
+  sections (the Pallas ``decode_join32_fused``, mode JOIN_F32): out =
+  ror1(low16 | third << 16 | sym << 24), 0 at positions at or past a
+  block's count.
 
 All send CUDA tensors to the kernels (``csrc/rans_decode_rows.cu``) and
 CPU tensors to the plain versions.
@@ -36,14 +42,15 @@ from ..core.constants import (
     STEPS_PER_BLOCK,
     VALID_PROB_BITS,
     WARP_SIZE,
+    FloatType,
 )
 from ..runtime import cuda_kernels as K
 from .bitops import M32, from_u32, to_u32
-from .float_split import join16, pack_bytes, unpack_bytes
+from .float_split import join16, join_wide_plain, pack_bytes, unpack_bytes
 
 
 def _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
-                       raw32=None, group: int = 4):
+                       raw32=None, group: int = 4, sec2=None):
     if prob_bits not in VALID_PROB_BITS:
         raise ValueError(f"prob_bits must be one of {VALID_PROB_BITS}")
     if streams.dim() != 3:
@@ -61,7 +68,10 @@ def _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
         ("states", states, (B, NB, WARP_SIZE)),
         ("lut", lut, (B, 1 << prob_bits)),
     ]
-    if raw32 is not None:
+    if sec2 is not None:
+        checks += [("sec1", raw32, (B, NB, BLOCK_SIZE // 2)),
+                   ("sec2", sec2, (B, NB, BLOCK_SIZE // 4))]
+    elif raw32 is not None:
         checks.append(("raw32", raw32, (B, NB, BLOCK_SIZE // 4)))
     for name, t, shape in checks:
         if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
@@ -166,11 +176,74 @@ def decode_join16_blocks_plain(streams, comp_w, uncomp_w, states, lut, raw32,
     return _join(sym, uncomp_w, raw32, bf16)
 
 
+def decode_join32(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
+                  prob_bits: int) -> torch.Tensor:
+    """Decode every block of a batch and join it into fp32 words.
+
+    Arguments as ``decode_rows``, plus sec1: int32[B, NB, 2048] block-major
+    low-u16 pairs and sec2: int32[B, NB, 1024] block-major third bytes.
+    Returns int32[B, NB, 4096]: one float per word, zero past each block's
+    count.
+    """
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       sec1, sec2=sec2)
+    if use_kernels(streams):
+        return K.decode_join32(streams, comp_w, uncomp_w, states, lut, sec1,
+                               sec2, prob_bits)
+    return decode_join32_plain(streams, comp_w, uncomp_w, states, lut, sec1,
+                               sec2, prob_bits)
+
+
+def decode_join32_plain(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
+                        prob_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of K12's row layout; runs on any device."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       sec1, sec2=sec2)
+    sym = _walk(streams, comp_w, uncomp_w, states, lut, prob_bits, 4)
+    return _join32(sym, uncomp_w, sec1, sec2)
+
+
+def decode_join32_blocks(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
+                         prob_bits: int) -> torch.Tensor:
+    """As ``decode_join32``, over per-block streams: streams
+    int32[B, NB, SW] start-aligned staged block streams."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       sec1, group=1, sec2=sec2)
+    if use_kernels(streams):
+        return K.decode_join32_blocks(streams, comp_w, uncomp_w, states, lut,
+                                      sec1, sec2, prob_bits)
+    return decode_join32_blocks_plain(streams, comp_w, uncomp_w, states, lut,
+                                      sec1, sec2, prob_bits)
+
+
+def decode_join32_blocks_plain(streams, comp_w, uncomp_w, states, lut, sec1,
+                               sec2, prob_bits: int) -> torch.Tensor:
+    """Plain PyTorch version of K12's classic layout; runs on any device."""
+    _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
+                       sec1, group=1, sec2=sec2)
+    sym = _walk(streams, comp_w, uncomp_w, states, lut, prob_bits, 1)
+    return _join32(sym, uncomp_w, sec1, sec2)
+
+
+def _keep(uncomp_w, dev):
+    """bool[B, NB, 4096]: positions below each block's count."""
+    p = torch.arange(BLOCK_SIZE, dtype=torch.int64, device=dev)
+    return p < uncomp_w.to(torch.int64)[..., None]
+
+
 def _join(sym, uncomp_w, raw32, bf16: bool) -> torch.Tensor:
-    p = torch.arange(BLOCK_SIZE, dtype=torch.int64, device=sym.device)
-    keep = p < uncomp_w.to(torch.int64)[..., None]
-    raw = torch.where(keep, unpack_bytes(to_u32(raw32)), 0)
+    raw = torch.where(_keep(uncomp_w, sym.device), unpack_bytes(to_u32(raw32)), 0)
     return from_u32(join16(sym, raw, bf16))
+
+
+def _join32(sym, uncomp_w, sec1, sec2) -> torch.Tensor:
+    """The fp32 join of ``join_wide_plain`` per block, zero past the count."""
+    B, NB, _ = sym.shape
+    words = join_wide_plain(
+        [from_u32(pack_bytes(sym)).reshape(B * NB, BLOCK_SIZE // 4)],
+        sec1.reshape(B * NB, -1), sec2.reshape(B * NB, -1), FloatType.FLOAT32,
+    ).reshape(B, NB, BLOCK_SIZE)
+    return torch.where(_keep(uncomp_w, sym.device), words, 0)
 
 
 def _walk(streams, comp_w, uncomp_w, states, lut, prob_bits: int, group: int):

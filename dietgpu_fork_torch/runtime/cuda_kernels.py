@@ -50,6 +50,7 @@ SOURCES = (
     "bitmap_pack.cu",
     "sparse_compact.cu",
     "sparse_expand.cu",
+    "lookup.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,6 +73,13 @@ launches: Dict[str, int] = {
     "bitmap_pack": 0,
     "sparse_compact": 0,
     "sparse_expand": 0,
+    "rans_decode_join32": 0,
+    "rans_decode_join32_blocks": 0,
+    "join16": 0,
+    "split16": 0,
+    "split_wide": 0,
+    "chunked_lookup": 0,
+    "rowwise_lookup": 0,
 }
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
@@ -161,6 +169,13 @@ def library() -> ctypes.CDLL:
         "dgt_bitmap_pack": [P, L, L, L, P, L, I, P, P],
         "dgt_sparse_compact": [P, L, L, L, P, P, L, I, P, L, P],
         "dgt_sparse_expand": [P, L, L, L, P, P, L, P, I, P, L, P],
+        "dgt_rans_decode_join32": [P, L, P, P, P, P, I, P, P, L, L, P, P],
+        "dgt_rans_decode_join32_blocks": [P, L, P, P, P, P, I, P, P, L, L, P, P],
+        "dgt_join16": [P, L, P, L, L, L, I, P, P],
+        "dgt_split16": [P, L, L, I, P, P, P],
+        "dgt_split_wide": [P, L, L, I, P, P, P, P],
+        "dgt_chunked_lookup": [P, L, L, P, L, P, P],
+        "dgt_rowwise_lookup": [P, L, L, P, L, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -275,23 +290,27 @@ def runs_merge(srcs: Sequence[torch.Tensor], dst, ref, off, lens, out_len: int):
 
 
 def _decode(fn: str, counter: str, streams, comp_w, uncomp_w, states, lut,
-            prob_bits: int, raw32=None, bf16: bool = False):
-    extra = () if raw32 is None else (raw32,)
+            prob_bits: int, raw32=None, bf16: bool = False, sec2=None):
+    """K6 (no raw32), K4 (raw32) or K12 (raw32 = sec1, and sec2)."""
+    extra = tuple(t for t in (raw32, sec2) if t is not None)
     _cuda_only(streams, comp_w, uncomp_w, states, lut, *extra)
     B, _, SW = streams.shape
     _batch_ok(B)
     NB = comp_w.shape[1]
     dev = streams.device
-    out = torch.empty((B, NB, 1024 if raw32 is None else 2048),
-                      dtype=torch.int32, device=dev)
+    width = 1024 if raw32 is None else (2048 if sec2 is None else 4096)
+    out = torch.empty((B, NB, width), dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         args = [streams.data_ptr(), SW, comp_w.data_ptr(), uncomp_w.data_ptr(),
                 states.data_ptr(), lut.data_ptr(), prob_bits]
         if raw32 is None:
             args += [B, NB]
-        else:
+        elif sec2 is None:
             args += [raw32.data_ptr(), B, NB, int(bf16)]
+        else:
+            _aligned(raw32, 8, "sec1")
+            args += [raw32.data_ptr(), sec2.data_ptr(), B, NB]
         err = getattr(lib, fn)(*args, out.data_ptr(), _stream(streams))
     _check(lib, err, counter)
     launches[counter] += 1
@@ -312,6 +331,22 @@ def decode_join16_blocks(streams, comp_w, uncomp_w, states, lut, raw32,
     return _decode("dgt_rans_decode_join16_blocks", "rans_decode_join16_blocks",
                    streams, comp_w, uncomp_w, states, lut, prob_bits, raw32,
                    bf16)
+
+
+def decode_join32(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
+                  prob_bits: int):
+    """K12 launch, row layout; arguments as ``ops.rans_decode.decode_join32``."""
+    return _decode("dgt_rans_decode_join32", "rans_decode_join32", streams,
+                   comp_w, uncomp_w, states, lut, prob_bits, sec1, sec2=sec2)
+
+
+def decode_join32_blocks(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
+                         prob_bits: int):
+    """K12 launch, classic layout; arguments as
+    ``ops.rans_decode.decode_join32_blocks``."""
+    return _decode("dgt_rans_decode_join32_blocks", "rans_decode_join32_blocks",
+                   streams, comp_w, uncomp_w, states, lut, prob_bits, sec1,
+                   sec2=sec2)
 
 
 def _aligned(t: torch.Tensor, nbytes: int, name: str) -> None:
@@ -345,6 +380,62 @@ def split_wide_hist(data32: torch.Tensor, n: torch.Tensor, float_type):
     _check(lib, err, "split_wide_hist")
     launches["split_wide_hist"] += 1
     return exp, sec1, sec2, hist, csum
+
+
+def split16(data32: torch.Tensor, bf16: bool):
+    """K1 launch without histogram; arguments as ``ops.float_split.split16``."""
+    _cuda_only(data32)
+    B, W32 = data32.shape
+    _batch_ok(B)
+    dev = data32.device
+    exp = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
+    raw = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_split16(data32.data_ptr(), B, W32, int(bf16),
+                              exp.data_ptr(), raw.data_ptr(), _stream(data32))
+    _check(lib, err, "split16")
+    launches["split16"] += 1
+    return exp, raw
+
+
+def split_wide(data32: torch.Tensor, float_type):
+    """K5 launch without histograms; arguments as
+    ``ops.float_split.split_wide``."""
+    _cuda_only(data32)
+    fp64 = FloatType(float_type) == FloatType.FLOAT64
+    B, W32 = data32.shape
+    _batch_ok(B)
+    _aligned(data32, 16, "data32")
+    P, E = (2, W32 // 8) if fp64 else (1, W32 // 4)
+    dev = data32.device
+    exp = torch.empty((P * B, E), dtype=torch.int32, device=dev)
+    sec1 = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
+    sec2 = torch.empty((B, W32 // 4), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_split_wide(data32.data_ptr(), B, W32, int(fp64),
+                                 exp.data_ptr(), sec1.data_ptr(),
+                                 sec2.data_ptr(), _stream(data32))
+    _check(lib, err, "split_wide")
+    launches["split_wide"] += 1
+    return exp, sec1, sec2
+
+
+def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
+    """K13 launch; arguments as ``ops.float_split.join16_rows``."""
+    _cuda_only(exp, raw)
+    B, E = exp.shape
+    _batch_ok(B)
+    out = torch.empty((B, 2 * E), dtype=torch.int32, device=exp.device)
+    lib = library()
+    with torch.cuda.device(exp.device):
+        err = lib.dgt_join16(exp.data_ptr(), exp.stride(0), raw.data_ptr(),
+                             raw.stride(0), B, E, int(bf16), out.data_ptr(),
+                             _stream(exp))
+    _check(lib, err, "join16")
+    launches["join16"] += 1
+    return out
 
 
 def decode_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
@@ -486,4 +577,41 @@ def expand_by_bitmap(nz32: torch.Tensor, bm32: torch.Tensor,
             BW, n.data_ptr(), ws, out.data_ptr(), ow, _stream(nz32))
     _check(lib, err, "sparse_expand")
     launches["sparse_expand"] += 1
+    return out
+
+
+def chunked_lookup(tables: torch.Tensor, idx: torch.Tensor):
+    """K14 launch, one table per member; arguments as
+    ``ops.lookup.chunked_lookup``."""
+    _cuda_only(tables, idx)
+    B, H = tables.shape
+    _batch_ok(B)
+    N = idx.shape[1]
+    out = torch.empty((B, N), dtype=torch.int32, device=idx.device)
+    if N == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(idx.device):
+        err = lib.dgt_chunked_lookup(tables.data_ptr(), B, H, idx.data_ptr(), N,
+                                     out.data_ptr(), _stream(idx))
+    _check(lib, err, "chunked_lookup")
+    launches["chunked_lookup"] += 1
+    return out
+
+
+def rowwise_lookup(tables: torch.Tensor, idx: torch.Tensor):
+    """K14 launch, one table per row; arguments as
+    ``ops.lookup.rowwise_lookup``."""
+    _cuda_only(tables, idx)
+    R, H = tables.shape
+    K = idx.shape[1]
+    out = torch.empty((R, K), dtype=torch.int32, device=idx.device)
+    if R == 0 or K == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(idx.device):
+        err = lib.dgt_rowwise_lookup(tables.data_ptr(), R, H, idx.data_ptr(), K,
+                                     out.data_ptr(), _stream(idx))
+    _check(lib, err, "rowwise_lookup")
+    launches["rowwise_lookup"] += 1
     return out

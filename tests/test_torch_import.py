@@ -37,6 +37,7 @@ def test_import_leaves_jax_out():
         "import dietgpu_fork_torch.models.sparse\n"
         "import dietgpu_fork_torch.ops.bitmap_pack\n"
         "import dietgpu_fork_torch.ops.sparse_stream\n"
+        "import dietgpu_fork_torch.ops.lookup\n"
         "import dietgpu_fork_torch.runtime.cuda_kernels\n"
         "import dietgpu_fork_torch.core.interop\n"
         "import dietgpu_fork_torch.api.codec\n"
@@ -119,7 +120,9 @@ def test_size_functions_equal_jax(size):
     ["split16_hist", "encode_rows", "runs_merge", "decode_join16",
      "split_wide_hist", "decode_rows", "join_wide", "byte_hist",
      "encode_blocks", "decode_blocks", "decode_join16_blocks", "pack_bitmap",
-     "compact_by_bitmap", "expand_by_bitmap"],
+     "compact_by_bitmap", "expand_by_bitmap", "decode_join32",
+     "decode_join32_blocks", "join16_rows", "split16", "split_wide",
+     "chunked_lookup", "rowwise_lookup"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper never runs, builds or falls back on a CPU tensor."""
@@ -143,6 +146,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "compact_by_bitmap": (t, t[:, :32], t[:, :33], T.FloatType.FLOAT32),
         "expand_by_bitmap": (t, t[:, :32], t[:, :33], t[0, :1], 1024,
                              T.FloatType.FLOAT32),
+        "decode_join32": (t[None], t, t, t, t, t, t, 10),
+        "decode_join32_blocks": (t[None], t, t, t, t, t, t, 10),
+        "join16_rows": (t, t, True),
+        "split16": (t, True),
+        "split_wide": (t, T.FloatType.FLOAT64),
+        "chunked_lookup": (t, t),
+        "rowwise_lookup": (t, t[:, :128]),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(K, wrapper)(*args)
@@ -150,18 +160,20 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
 
 
 def test_every_source_is_built_and_counted():
-    """Each kernel source is in the build (K8 and the sparse K9-K11
-    among them), and each layout of K2, K4 and K6 has its own launch
-    counter."""
+    """Each kernel source is in the build (K8, the sparse K9-K11 and the
+    lookups K14 among them), and each layout of K2, K4, K6 and K12, and
+    each split or join mode, has its own launch counter."""
     from dietgpu_fork_torch.runtime import cuda_kernels as K
 
     on_disk = sorted(p.name for p in K.CSRC.glob("*.cu"))
     assert sorted(K.SOURCES) == on_disk
     assert {"byte_hist.cu", "bitmap_pack.cu", "sparse_compact.cu",
-            "sparse_expand.cu"} <= set(K.SOURCES)
+            "sparse_expand.cu", "lookup.cu"} <= set(K.SOURCES)
     assert {"byte_hist", "rans_encode_blocks", "rans_decode_blocks",
             "rans_decode_join16_blocks", "bitmap_pack", "sparse_compact",
-            "sparse_expand"} <= set(K.launches)
+            "sparse_expand", "rans_decode_join32", "rans_decode_join32_blocks",
+            "join16", "split16", "split_wide", "chunked_lookup",
+            "rowwise_lookup"} <= set(K.launches)
     K.launches["byte_hist"] = 3
     K.reset_launches()
     assert not any(K.launches.values())
