@@ -11,7 +11,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    calls, then holds each kernel and mode against its plain PyTorch
    version on the recorded inputs (the main path's own shapes), bit for
    bit, and times both with CUDA events, beside the kernel's bound (the
-   bytes its calls must move at 3.35 TB/s) and, where one PyTorch call
+   bytes its calls must move at 3.35 TB/s; for the in-place decode the
+   streams, live states and raw bytes it reads of the archive, not the
+   whole archive tensor) and, where one PyTorch call
    computes the same function, that call's time;
 3. drives the main paths, each with the launch counters reset just before
    and read just after, and checks the round trip, the archive against the
@@ -45,7 +47,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``GOLDEN_SHA256`` entries, and two sparse archives (fp32 native with a
    v2 dense part, bf16 classic) to their ``GOLDEN_SPARSE_SHA256`` entries;
    the CPU tests hold each equal to the NumPy oracle's archive;
-5. round-trips a ragged bf16 batch of 128 members and ragged fp32 and
+5. holds K3 to its plain version on ragged runs that exercise its tiles
+   (``phase_k3_ragged``) and the in-place decode at archive offsets that
+   are not 16 B aligned (``phase_misaligned``); checks that a core round
+   trip makes at most ``K3_MAX_LAUNCHES`` K3 launches (phase 3);
+   round-trips a ragged bf16 batch of 128 members and ragged fp32 and
    fp64 batches of 64 members, each of up to 128Ki floats; then D, the
    reference's large batch, 128 x 512Ki bf16 through the API; E, the
    split-size API on one 16Mi bf16 tensor in ragged members, back to one
@@ -59,8 +65,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    decode formulation in turns with the default one on the same archive.
 
 ``python3 chip_smoke.py --profile`` instead profiles each main path's
-compress and decompress, and each decode formulation's decompress
-(``profile_paths``), and prints no result.
+compress and decompress, each decode formulation's decompress, phase O's
+run and its lookups' library calls (``profile_paths``), and prints no
+result.
 
 It exits non-zero, printing no result, when CUDA is not available or any
 phase fails. The line before the last is a JSON object with one entry per
@@ -69,9 +76,11 @@ kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -117,15 +126,8 @@ from dietgpu_fork_torch.ops.lookup import (
     rowwise_lookup,
     rowwise_lookup_plain,
 )
-from dietgpu_fork_torch.ops.merge import runs_merge_plain
-from dietgpu_fork_torch.ops.rans_decode import (
-    decode_blocks_plain,
-    decode_join16_blocks_plain,
-    decode_join16_plain,
-    decode_join32_blocks_plain,
-    decode_join32_plain,
-    decode_rows_plain,
-)
+from dietgpu_fork_torch.ops.merge import runs_merge, runs_merge_plain
+from dietgpu_fork_torch.ops.rans_decode import decode_at_plain
 from dietgpu_fork_torch.ops.rans_encode import encode_blocks_plain, encode_rows_plain
 from dietgpu_fork_torch.ops.sparse_stream import (
     _unpack_bits,
@@ -193,6 +195,14 @@ P_O = "O:ops"
 # one row-walk step's stream reads (a staged row each, 128 lanes)
 O_LUT, O_ROWS, O_ROW_WORDS, O_LANES = 1024, 1024, 5120, 128
 
+# the plain version of the six decode wrappers (K4, K6, K12), which take
+# decode_at's arguments in its order
+_AT_ROWS = functools.partial(decode_at_plain, rows=True)
+_AT_BLOCKS = functools.partial(decode_at_plain, rows=False)
+# K3 launches a round trip may make on the core paths: the compress merge,
+# and on the two-pass decode one merge staging the raw sections
+K3_MAX_LAUNCHES = {P_BF16: 2, P_FP32: 3, P_FP64: 4}
+
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
 # main paths that must launch it)
@@ -209,8 +219,8 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/runs_merge.cu",
      ("ops/pallas/merge.py:305", "ops/pallas/merge.py:74"),
      (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S
-     + (P_F32F, P_F32FC, P_B16T, P_B16TC)),
-    ("decode_join16", "rans_decode_join16", decode_join16_plain,
+     + (P_B16T, P_B16TC)),
+    ("decode_join16", "rans_decode_join16", _AT_ROWS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_BF16, P_A, P_S16)),
     ("split_wide_hist", "split_wide_hist", split_wide_hist_plain,
@@ -218,7 +228,7 @@ KERNELS = [
      ("ops/pallas/float_split_fused.py:291",
       "ops/pallas/float_split_fused.py:305"),
      (P_FP32, P_FP64, P_C32, P_S32, P_S64)),
-    ("decode_rows", "rans_decode_rows", decode_rows_plain,
+    ("decode_rows", "rans_decode_rows", _AT_ROWS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",),
      (P_FP32, P_FP64, P_B, P_S32, P_S64, P_B16T)),
@@ -235,11 +245,11 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/rans_encode_rows.cu",
      ("ops/pallas/rans_encode_fused.py:305",
       "ops/pallas/rans_encode_fused.py:114"), (P_CF, P_CR, P_C32)),
-    ("decode_blocks", "rans_decode_blocks", decode_blocks_plain,
+    ("decode_blocks", "rans_decode_blocks", _AT_BLOCKS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_CR, P_C32, P_B16TC)),
     ("decode_join16_blocks", "rans_decode_join16_blocks",
-     decode_join16_blocks_plain, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
+     _AT_BLOCKS, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_CF,)),
     ("pack_bitmap", "bitmap_pack", pack_bitmap_plain,
      "dietgpu_fork_torch/csrc/bitmap_pack.cu",
@@ -252,12 +262,12 @@ KERNELS = [
     ("expand_by_bitmap", "sparse_expand", expand_by_bitmap_plain,
      "dietgpu_fork_torch/csrc/sparse_expand.cu",
      ("ops/pallas/sparse_stream.py:60",), P_S),
-    ("decode_join32", "rans_decode_join32", decode_join32_plain,
+    ("decode_join32", "rans_decode_join32", _AT_ROWS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",
       "ops/pallas/rans_decode_fused2.py:267"), (P_F32F,)),
     ("decode_join32_blocks", "rans_decode_join32_blocks",
-     decode_join32_blocks_plain, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
+     _AT_BLOCKS, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",
       "ops/pallas/rans_decode_fused2.py:267"), (P_F32FC,)),
     ("join16_rows", "join16", join16_rows_plain,
@@ -276,6 +286,7 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/lookup.cu", ("ops/pallas/lookup.py:60",), (P_O,)),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+WARP = 32  # rANS states a block
 
 
 def _nbytes(x) -> int:
@@ -301,6 +312,17 @@ def _distinct(tables, idx) -> int:
     return int(s.shape[0] + (s[:, 1:] != s[:, :-1]).sum()) if s.numel() else 0
 
 
+def _decode_need(a) -> int:
+    """The archive bytes an in-place decode (decode_at's arguments) needs
+    of the whole archive tensor it is handed: the streams' words, the states
+    of the blocks that decode something, and the raw section bytes below
+    each block's count (1 a float for the 16-bit join, 3 for fp32's)."""
+    seg_len, uncomp_w, raw_off, sec2_off = a[2], a[4], a[8], a[9]
+    raw = 0 if raw_off is None else (1 if sec2_off is None else 3)
+    return (4 * int(seg_len.clamp(min=0).sum())
+            + 4 * WARP * int((uncomp_w > 0).sum()) + raw * int(uncomp_w.sum()))
+
+
 # the bytes of the one input whose use depends on the data, as (argument
 # index, the bytes that the call's data needs of it)
 _DATA_INPUT = {
@@ -308,17 +330,17 @@ _DATA_INPUT = {
     "encode_rows": (0, lambda a: int(a[1].sum())),
     "encode_blocks": (0, lambda a: int(a[1].sum())),
     "runs_merge": (0, lambda a: 4 * int(a[4].sum())),
-    "decode_join16": (0, lambda a: 2 * int(a[1].sum())),
-    "decode_join16_blocks": (0, lambda a: 2 * int(a[1].sum())),
-    "decode_rows": (0, lambda a: 2 * int(a[1].sum())),
-    "decode_blocks": (0, lambda a: 2 * int(a[1].sum())),
+    "decode_join16": (0, _decode_need),
+    "decode_join16_blocks": (0, _decode_need),
+    "decode_rows": (0, _decode_need),
+    "decode_blocks": (0, _decode_need),
     "split_wide_hist": (0, lambda a: _ws(a[2]) * int(a[1].sum())),
     "byte_hist": (0, lambda a: int(a[1].sum())),
     "pack_bitmap": (0, lambda a: _ws(a[2]) * int(a[1].sum())),
     "compact_by_bitmap": (0, lambda a: _ws(a[3]) * _nnz(a[2])),
     "expand_by_bitmap": (0, lambda a: _ws(a[5]) * _nnz(a[2])),
-    "decode_join32": (0, lambda a: 2 * int(a[1].sum())),
-    "decode_join32_blocks": (0, lambda a: 2 * int(a[1].sum())),
+    "decode_join32": (0, _decode_need),
+    "decode_join32_blocks": (0, _decode_need),
     "rowwise_lookup": (0, lambda a: 4 * _distinct(*a)),
 }
 
@@ -693,6 +715,11 @@ class OpsPhase:
         self.lut_idx = ints(-64, O_LUT + 64, (1, MAIN_N))
         self.tabs = ints(-(1 << 31), (1 << 31) - 1, (O_ROWS, O_ROW_WORDS))
         self.tab_idx = ints(-64, O_ROW_WORDS + 64, (O_ROWS, O_LANES))
+        # the lookups' library calls on the same work (``library_call``:
+        # ``torch.gather``, the indices clamped at set-up), for the profile
+        self.gathers = (
+            ("chunked gather", library_call("chunked_lookup", (self.lut, self.lut_idx))),
+            ("rowwise gather", library_call("rowwise_lookup", (self.tabs, self.tab_idx))))
 
     def run(self):
         """{type: split then join of its rows, "chunked", "rowwise"}."""
@@ -891,6 +918,128 @@ def phase_f(comp: torch.Tensor):
                        "a checksum error")
 
 
+def print_ptxas(log: str) -> None:
+    """ptxas's registers, shared memory and spills per kernel, each line
+    under the kernel's name and template arguments (the kernels sit in
+    anonymous namespaces, whose mangled names are cut away)."""
+    fn = "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+            m = re.match(r"_ZN(\d+)_GLOBAL__N_", fn)
+            if m:  # _ZN <length><namespace> <length><name>, then template
+                # arguments L<type><value>E
+                rest = fn[m.start(1) + len(m.group(1)) + int(m.group(1)):]
+                k = re.match(r"\d+", rest)
+                name, rest = rest[k.end(): k.end() + int(k.group())], rest[k.end() + int(k.group()):]
+                targs = re.findall(r"L[a-z](-?\d+)E", rest.split("EEv")[0])
+                fn = f"{name}<{','.join(targs)}>" if targs else name
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas {fn}: {line.strip().removeprefix('ptxas info    : ')}")
+
+
+def phase_k3_ragged(dev):
+    """K3 against its plain version on ragged runs that exercise its
+    tiles: runs and zero-length runs at tile boundaries (8192 words), runs
+    spanning many tiles, more runs in a tile than one batch of
+    descriptors (256), sources and offsets not congruent mod 4 words, reads
+    past a source's ends, bad refs, gaps and a zero tail; an output past
+    2^31 words; and more than 8 sources refused."""
+    g = np.random.default_rng(31)
+    tile = 8192
+    base = torch.from_numpy(g.integers(-(1 << 31), 1 << 31, 1 << 21,
+                                       dtype=np.int64).astype(np.int32)).to(dev)
+    # six sources, some starting 1-3 words past a 16 B boundary
+    srcs = [base[k * 300_000 + k % 4: (k + 1) * 300_000 - 5] for k in range(6)]
+    cases = {}
+    # long runs straddling tiles, zero-length runs on tile boundaries
+    dst = [0, tile - 3, tile, tile, 3 * tile + 1, 9 * tile, 9 * tile]
+    lens = [tile - 3, 3, 0, 2 * tile + 1, 5 * tile + 7, 0, 40_000]
+    ref = [0, 1, 2, 3, 4, 5, 0]
+    off = [0, 17, 5, 2, 1 << 17, 9, 290_000]  # the last reads past its end
+    cases["tiles"] = (dst, ref, off, lens, 9 * tile + 40_000 + 1000)
+    # many short runs: tiles of more than 256 runs, every alignment
+    R = 40_000
+    ln = g.integers(0, 12, R)
+    ln[g.random(R) < 0.2] = 0
+    d = np.cumsum(g.integers(0, 3, R) + np.concatenate([[0], ln[:-1]]))
+    rf = g.integers(-1, 7, R)  # -1 and 6 are bad refs
+    of = g.integers(-3, 300_000, R)
+    cases["short"] = (d, rf, of, ln, int(d[-1] + ln[-1]) + 5000)
+    # mixed long and short runs, congruent and not
+    R = 3000
+    ln = np.where(g.random(R) < 0.1, g.integers(0, 60_000, R), g.integers(0, 9, R))
+    d = np.cumsum(g.integers(0, 40, R) + np.concatenate([[0], ln[:-1]]))
+    rf = g.integers(0, 6, R)
+    # half the offsets congruent with the destination (source k starts k % 4
+    # words past a 16 B boundary), half anywhere
+    of = np.where(g.random(R) < 0.5, (d - rf % 4) % 4, g.integers(0, 240_000, R))
+    cases["mixed"] = (d, rf, of, ln, int(d[-1] + ln[-1]) + 17)
+    def t(x, dt=torch.int64):
+        return torch.as_tensor(np.asarray(x), dtype=dt).to(dev)
+
+    for name, (d, rf, of, ln, out_len) in cases.items():
+        args = (srcs, t(d), t(rf, torch.int32), t(of), t(ln), out_len)
+        got = K.runs_merge(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, runs_merge_plain(*args)),
+              f"K3 ragged case {name} equals its plain version")
+        print(f"K3 ragged {name}: {len(ln)} runs, {out_len} words, "
+              f"{(out_len + tile - 1) // tile} tiles, equal to plain")
+    # past 2^31 output words (8 GiB): a run straddling word 2^31 and one
+    # from a misaligned source after it, zeros around them
+    big = 1 << 31
+    d, ln, of = [big - 500, big + 5000], [1000, 3000], [7, 11]
+    out = K.runs_merge(srcs[:2], t(d), t([0, 1], torch.int32), t(of), t(ln),
+                       big + 10_000)
+    torch.cuda.synchronize()
+    check(torch.equal(out[d[0]: d[0] + ln[0]], srcs[0][7: 7 + ln[0]])
+          and torch.equal(out[d[1]: d[1] + ln[1]], srcs[1][11: 11 + ln[1]])
+          and not bool(out[: d[0]].any()) and not bool(out[big + 500: d[1]].any())
+          and not bool(out[d[1] + ln[1]:].any()),
+          "K3 past 2^31 output words")
+    del out
+    print(f"K3 past 2^31 words: {big + 10_000} words out, runs across word "
+          "2^31 placed, zeros elsewhere")
+    try:
+        runs_merge([srcs[0]] * 9, *args[1:])
+    except ValueError as e:
+        print(f"K3 with 9 sources raised: {e}")
+    else:
+        raise RuntimeError("check failed: K3 took 9 sources")
+
+
+def phase_misaligned(dev):
+    """The in-place decode at archive offsets that are not 16 B aligned:
+    the golden bf16 and fp32 inputs' archives shifted by 1-3 words in
+    wider rows, decoded fused and two-pass in both layouts, equal to the
+    aligned decode and to the plain decode."""
+    for ft, fused in ((BF16, True), (FP32, True), (BF16, False)):
+        rows = rows_from_numpy(golden_input(ft)[1], dev)
+        n = torch.tensor([GOLDEN_N], dtype=torch.int32, device=dev)
+        for native in (True, False):
+            arc, _ = float_compress_core(rows, n, ft, PROB_BITS, native=native)
+            want = float_decompress_core(
+                arc, torch.zeros(1, dtype=torch.int64, device=dev), GOLDEN_N,
+                ft, PROB_BITS, native=native, fused=fused)
+            for shift in (1, 2, 3):
+                wide = torch.zeros((1, arc.shape[1] + 4), dtype=torch.int32,
+                                   device=dev)
+                wide[:, shift: shift + arc.shape[1]] = arc
+                base = torch.full((1,), shift, dtype=torch.int64, device=dev)
+                for plain in (False, True):
+                    got = float_decompress_core(wide, base, GOLDEN_N, ft,
+                                                PROB_BITS, native=native,
+                                                fused=fused, plain=plain)
+                    check(all(torch.equal(x, y) for x, y in zip(got, want))
+                          and bool(got[1][0]),
+                          f"{ft.name} native={native} fused={fused} decode at "
+                          f"word {shift} (plain={plain})")
+    print("misaligned decode: bf16 fused and two-pass, fp32 fused, both "
+          "layouts, archives at words 1-3, equal to the aligned decode and "
+          "to the plain decode")
+
+
 def _kernel_name(name: str) -> str:
     """A kernel of ``csrc/`` (they sit in an anonymous namespace) by its
     function and template arguments; other device ops as the profiler
@@ -917,7 +1066,8 @@ def profile_paths(paths, ops, card: str) -> None:
           "share, host launches, device ops")
     for mp in paths + [ops]:
         if mp is ops:
-            runs = (("run", ops.run),)
+            # the lookups' library calls too, device time against device time
+            runs = (("run", ops.run),) + ops.gathers
         else:
             arc = mp.compress()[0]
             runs = (("compress", mp.compress),
@@ -1037,9 +1187,7 @@ def main() -> int:
     K.library()
     print(f"kernel build: {K.build_info['seconds']:.1f} s in nvcc, "
           f"{time.perf_counter() - t0:.1f} s to load ({K.build_info['path']})")
-    for line in str(K.build_info["log"]).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print_ptxas(str(K.build_info["log"]))
 
     paths = [MainPath(ft, dev) for ft in (BF16, FP32, FP64)] + [
         ApiFloatPath(P_A, BF16, None, dev),
@@ -1085,6 +1233,10 @@ def main() -> int:
 
         (arc, comp_bytes, res), counts = counted(mp.name, run, launches, report)
         check(mp.round_trip_ok(res), f"{mp.name} main path round trip")
+        if mp.name in K3_MAX_LAUNCHES:
+            check(counts["runs_merge"] <= K3_MAX_LAUNCHES[mp.name],
+                  f"{mp.name}: {counts['runs_merge']} K3 launches a round trip, "
+                  f"more than {K3_MAX_LAUNCHES[mp.name]}")
         cb = int(comp_bytes.sum())
         print(f"{mp.name} main path: comp_bytes {cb}, ratio "
               f"{cb / mp.raw_bytes:.6f}, launches {counts}")
@@ -1160,6 +1312,8 @@ def main() -> int:
 
     # 5. ragged batches: per-member tables inside K2, K4 and K6, partial
     # groups of floats in K5 and K7; then D, E and F
+    phase_k3_ragged(dev)
+    phase_misaligned(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)
     ragged_batch(FP64, 64, 300, dev)

@@ -1,5 +1,6 @@
-"""ANS archives in both layouts: assembly runs on compress, header parse,
-validation and staging on decompress, and the byte-row entry points.
+"""ANS archives in both layouts: assembly runs on compress, header parse
+and validation on decompress (the decode then reads the streams and states
+from the archive in place), and the byte-row entry points.
 
 A port of the JAX package's ``models/ans.py``. An ANS archive is
 [header 8 | pdf 128 | states 32*nb | blockWords 2*round2(nb) | streams], in
@@ -40,18 +41,10 @@ from ..ops.checksum import checksum_packed
 from ..ops.histogram import byte_hist, byte_hist_plain
 from ..ops.merge import runs_merge, runs_merge_plain
 from ..ops.rans_decode import (
-    decode_blocks,
-    decode_blocks_plain,
-    decode_join16,
-    decode_join16_blocks,
-    decode_join16_blocks_plain,
-    decode_join16_plain,
-    decode_join32,
-    decode_join32_blocks,
-    decode_join32_blocks_plain,
-    decode_join32_plain,
-    decode_rows,
-    decode_rows_plain,
+    BLOCK_STREAM_CAP,
+    ROW_STREAM_CAP,
+    decode_at,
+    decode_at_plain,
 )
 from ..ops.rans_encode import (
     encode_blocks,
@@ -68,9 +61,10 @@ from ..ops.table import (
 ANS_MAGIC_VERSION = (ANS_MAGIC << 16) | ANS_VERSION
 ANS_MAGIC_NATIVE_VERSION = (ANS_MAGIC_NATIVE << 16) | ANS_VERSION
 META_WORDS = 136  # header (8) + packed pdf table (128)
-# staged stream widths on decode: the worst-case row or block plus slack
-STAGE_ROW_WORDS32 = MAX_ROW_WORDS32 + 8
-STAGE_BLOCK_WORDS32 = MAX_BLOCK_WORDS32 + 8
+# the widths of start-aligned staged streams (the staged decode forms): the
+# decode's stream caps, the worst-case row or block plus slack
+STAGE_ROW_WORDS32 = ROW_STREAM_CAP
+STAGE_BLOCK_WORDS32 = BLOCK_STREAM_CAP
 
 # source indices of EncodedRuns.src_ref
 SRC_META, SRC_PAIRS, SRC_STREAMS = 0, 1, 2
@@ -285,37 +279,40 @@ def ans_encode_padded(
     return comp, comp_bytes
 
 
-class StagedANS(NamedTuple):
-    # int32[B, NR, STAGE_ROW_WORDS32] (row layout) or
-    # int32[B, NB, STAGE_BLOCK_WORDS32] (classic)
-    streams: torch.Tensor
+class ParsedANS(NamedTuple):
+    """Where the decode reads a batch's archives, in place: word offsets
+    into the archive rows flattened (``comp32.reshape(-1)``)."""
+
+    # int64[B, NR] (row layout) or [B, NB] (classic): each stream's first
+    # word and its length in words, 0 for dead streams
+    seg_off: torch.Tensor
+    seg_len: torch.Tensor
     comp_w: torch.Tensor  # int32[B, NB]
     uncomp_w: torch.Tensor  # int32[B, NB]
-    states: torch.Tensor  # int32[B, NB, 32]
+    state_off: torch.Tensor  # int64[B]: block 0's 32 states (block b's at + 32 b)
     pdf: torch.Tensor  # int64[B, 256]
     success: torch.Tensor  # bool[B]
     n: torch.Tensor  # int64[B] decoded byte counts (0 where invalid)
     csum: torch.Tensor  # int64[B] the header's checksum word
 
 
-def _ans_parse_and_stage(
+def _ans_parse(
     comp32: torch.Tensor,
     base32: torch.Tensor,
     out_capacity: int,
     capacities: Optional[torch.Tensor],
     prob_bits: int,
     native: bool = True,
-    plain: bool = False,
-) -> StagedANS:
+) -> ParsedANS:
     """Parse and validate the ANS headers at per-member word offsets base32
-    of comp32's rows, then stage the states, blockWords and streams (one
-    per row of 4 blocks if native, else one per block), start-aligned.
+    of comp32's rows, and locate the states and the streams (one per row of
+    4 blocks if native, else one per block) for the decode to read in
+    place. The blockWords come in one indexed read.
 
     A wrong magic or prob_bits, an inconsistent block count, an extent past
     the row, or blockWords that break the format fail the member (size
-    reported 0, staging zeroed) instead of trapping
+    reported 0, its streams empty) instead of trapping
     (the JAX package's ``models/ans.py:369-377, 431-487``)."""
-    merge = runs_merge_plain if plain else runs_merge
     dev = comp32.device
     B, CW = comp32.shape
     NB = max(1, _ceil_div(out_capacity, BLOCK_SIZE))
@@ -354,28 +351,19 @@ def _ans_parse_and_stage(
     live = (blk < nb[:, None]) & success[:, None]
 
     flat = comp32.reshape(-1)
-    b_ar = torch.arange(B, dtype=torch.int64, device=dev)
-    abs_base = b_ar * CW + base
+    abs_base = torch.arange(B, dtype=torch.int64, device=dev) * CW + base
     bw_off, data_off = _layout(nb_arch)
-    SM, PM = 32 * NB, 2 * NB
-    zero_ref = torch.zeros(2 * B, dtype=torch.int32, device=dev)
-    stage1 = merge(
-        [flat],
-        torch.cat([b_ar * SM, B * SM + b_ar * PM]),
-        zero_ref,
-        torch.cat([abs_base + META_WORDS, abs_base + bw_off]),
-        torch.cat([32 * nb, 2 * nb]),
-        B * (SM + PM),
-    )
-    states = stage1[: B * SM].reshape(B, NB, WARP_SIZE)
-    bw = to_u32(stage1[B * SM:].reshape(B, NB, 2))
+    # the blockWords of blocks below nb, read clamped into the archive words
+    k2 = torch.arange(2 * NB, dtype=torch.int64, device=dev)[None, :]
+    i2 = ((abs_base + bw_off)[:, None] + k2).clamp(0, flat.numel() - 1)
+    bw = torch.where(k2 < 2 * nb[:, None], to_u32(flat[i2]), 0).reshape(B, NB, 2)
 
     bx, by = bw[:, :, 0], bw[:, :, 1]
     uncomp_w = torch.where(live, bx >> 16, 0)
     comp_w = torch.where(live, bx & 0xFFFF, 0)
     starts = torch.where(live, to_i32(by), 0)
 
-    # blockWords must match the format before they feed staging offsets:
+    # blockWords must match the format before they locate streams:
     # uncomp_w EQUAL to the header-derived fill (so outputs are zero past n
     # by construction), comp_w within the worst case, extents inside total
     uw_expect = (n[:, None] - blk * BLOCK_SIZE).clamp(0, BLOCK_SIZE)
@@ -398,29 +386,31 @@ def _ans_parse_and_stage(
         seg_words = F.pad(comp_w, (0, 4 * NR - NB)).reshape(B, NR, 4).sum(dim=2)
         seg_starts = starts[:, 0::4]
         success = success & (seg_starts + seg_words <= total_w[:, None]).all(dim=1)
-        NSEG, SW = NR, STAGE_ROW_WORDS32
     else:
         seg_words, seg_starts = comp_w, starts
-        NSEG, SW = NB, STAGE_BLOCK_WORDS32
     dead = ~success[:, None]
     seg_words = torch.where(dead, 0, seg_words)
     seg_starts = torch.where(dead, 0, seg_starts)
     comp_w = torch.where(dead, 0, comp_w)
     uncomp_w = torch.where(dead, 0, uncomp_w)
-
-    r_flat = torch.arange(B * NSEG, dtype=torch.int64, device=dev)
-    streams = merge(
-        [flat],
-        r_flat * SW,
-        torch.zeros(B * NSEG, dtype=torch.int32, device=dev),
-        ((abs_base + data_off)[:, None] + (seg_starts >> 1)).reshape(-1),
-        ((seg_words + 1) >> 1).reshape(-1),
-        B * NSEG * SW,
-    ).reshape(B, NSEG, SW)
-    return StagedANS(
-        streams, comp_w.to(torch.int32), uncomp_w.to(torch.int32), states, pdf,
-        success, n, csum,
+    return ParsedANS(
+        (abs_base + data_off)[:, None] + (seg_starts >> 1), (seg_words + 1) >> 1,
+        comp_w.to(torch.int32), uncomp_w.to(torch.int32), abs_base + META_WORDS,
+        pdf, success, n, csum,
     )
+
+
+def _ans_decode(comp32, base32, out_capacity, capacities, prob_bits, native,
+                plain, raw_off=None, sec2_off=None, bf16=False):
+    """Parse, then one in-place decode of every member; the epilogue as
+    ``ops.rans_decode.decode_at``'s. Returns (out, ParsedANS)."""
+    p = _ans_parse(comp32, base32, out_capacity, capacities, prob_bits, native)
+    lut = from_u32(build_decode_table_batched(p.pdf, prob_bits))
+    decode = decode_at_plain if plain else decode_at
+    out = decode(comp32.reshape(-1), p.seg_off, p.seg_len, p.comp_w,
+                 p.uncomp_w, p.state_off, lut, prob_bits, raw_off=raw_off,
+                 sec2_off=sec2_off, bf16=bf16, rows=native)
+    return out, p
 
 
 def ans_decode_core(
@@ -439,26 +429,19 @@ def ans_decode_core(
     Returns (out32 int32[B, ceil(out_capacity / 4)], zero past each
     member's size and all zero for failed members; success bool[B];
     n int64[B]; csum int64[B])."""
-    st = _ans_parse_and_stage(
-        comp32, base32, out_capacity, capacities, prob_bits, native, plain
-    )
-    B = comp32.shape[0]
-    NB = st.comp_w.shape[1]
-    lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
-    if native:
-        decode = decode_rows_plain if plain else decode_rows
-    else:
-        decode = decode_blocks_plain if plain else decode_blocks
-    out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut, prob_bits)
+    comp32 = comp32.contiguous()
+    out, p = _ans_decode(comp32, base32, out_capacity, capacities, prob_bits,
+                         native, plain)
+    B, NB = p.comp_w.shape
     OW = _ceil_div(out_capacity, 4)
     out32 = out.reshape(B, NB * (BLOCK_SIZE // 4))[:, :OW]
-    return torch.where(st.success[:, None], out32, 0), st.success, st.n, st.csum
+    return torch.where(p.success[:, None], out32, 0), p.success, p.n, p.csum
 
 
 def ans_decode_join16_core(
     comp32: torch.Tensor,
     base32: torch.Tensor,
-    raw32_blocks: torch.Tensor,
+    raw_off: torch.Tensor,
     out_floats: int,
     prob_bits: int,
     bf16: bool,
@@ -467,33 +450,25 @@ def ans_decode_join16_core(
     plain: bool = False,
 ):
     """Decode the exponent-plane ANS archives at word offsets base32 and
-    join them with the block-major raw section raw32_blocks
-    (int32[B, NB, 1024]) into 16-bit floats.
+    join them with the raw section that starts at word raw_off (int64[B])
+    of ``comp32.reshape(-1)``, 1024 words a block, into 16-bit floats.
 
     Returns (words32 int32[B, ceil(out_floats / 2)], success bool[B],
     n int64[B], csum int64[B]). words32 is not masked by success: the float
     codec applies its combined success."""
-    st = _ans_parse_and_stage(
-        comp32, base32, out_floats, capacities, prob_bits, native, plain
-    )
-    B = comp32.shape[0]
-    NB = st.comp_w.shape[1]
-    lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
-    if native:
-        decode = decode_join16_plain if plain else decode_join16
-    else:
-        decode = decode_join16_blocks_plain if plain else decode_join16_blocks
-    out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut,
-                 raw32_blocks, prob_bits, bf16)
+    comp32 = comp32.contiguous()
+    out, p = _ans_decode(comp32, base32, out_floats, capacities, prob_bits,
+                         native, plain, raw_off=raw_off, bf16=bf16)
+    B, NB = p.comp_w.shape
     OW = _ceil_div(2 * out_floats, 4)
-    return out.reshape(B, NB * 2048)[:, :OW], st.success, st.n, st.csum
+    return out.reshape(B, NB * 2048)[:, :OW], p.success, p.n, p.csum
 
 
 def ans_decode_join32_core(
     comp32: torch.Tensor,
     base32: torch.Tensor,
-    sec1_blocks: torch.Tensor,
-    sec2_blocks: torch.Tensor,
+    sec1_off: torch.Tensor,
+    sec2_off: torch.Tensor,
     out_floats: int,
     prob_bits: int,
     capacities: Optional[torch.Tensor] = None,
@@ -501,28 +476,20 @@ def ans_decode_join32_core(
     plain: bool = False,
 ):
     """Decode the fp32 exponent-plane ANS archives at word offsets base32
-    and join them with the block-major raw sections sec1_blocks
-    (int32[B, NB, 2048], low-u16 pairs) and sec2_blocks (int32[B, NB, 1024],
-    third bytes) into fp32 words (the JAX package's
-    ``models/ans.py:608-640``).
+    and join them with the raw sections that start at words sec1_off
+    (low-u16 pairs, 2048 words a block) and sec2_off (third bytes, 1024
+    words a block), int64[B] each, of ``comp32.reshape(-1)``, into fp32
+    words (the JAX package's ``models/ans.py:608-640``).
 
     Returns (words32 int32[B, out_floats], success bool[B], n int64[B],
     csum int64[B]). words32 is not masked by success, as in
     ``ans_decode_join16_core``."""
-    st = _ans_parse_and_stage(
-        comp32, base32, out_floats, capacities, prob_bits, native, plain
-    )
-    B = comp32.shape[0]
-    NB = st.comp_w.shape[1]
-    lut = from_u32(build_decode_table_batched(st.pdf, prob_bits))
-    if native:
-        decode = decode_join32_plain if plain else decode_join32
-    else:
-        decode = decode_join32_blocks_plain if plain else decode_join32_blocks
-    out = decode(st.streams, st.comp_w, st.uncomp_w, st.states, lut,
-                 sec1_blocks, sec2_blocks, prob_bits)
-    return (out.reshape(B, NB * BLOCK_SIZE)[:, :out_floats], st.success, st.n,
-            st.csum)
+    comp32 = comp32.contiguous()
+    out, p = _ans_decode(comp32, base32, out_floats, capacities, prob_bits,
+                         native, plain, raw_off=sec1_off, sec2_off=sec2_off)
+    B, NB = p.comp_w.shape
+    return (out.reshape(B, NB * BLOCK_SIZE)[:, :out_floats], p.success, p.n,
+            p.csum)
 
 
 def ans_decode_padded(

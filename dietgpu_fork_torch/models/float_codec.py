@@ -9,14 +9,15 @@ A port of the JAX package's ``models/float_codec.py``:
   the raw sections and the ANS archives' runs into each member's archive
   row;
 * decompress, fused (the default for 16-bit types): float header parse ->
-  K3 stages the raw section(s) block-major -> ANS parse, validation and two
-  K3 staging merges -> K4 (16-bit) or K12 (fp32, ``fused=True``) decodes
-  and joins into float words (the JAX package's fused branches);
+  ANS parse and validation -> K4 (16-bit) or K12 (fp32, ``fused=True``)
+  decodes and joins into float words, reading the streams, the states and
+  the raw section(s) from the archive in place (the JAX package's fused
+  branches): no K3 merge;
 * decompress, two-pass (the default for fp32 and fp64): float header parse
-  -> per plane, ANS parse, validation, staging and a K6 decode to bytes ->
-  one K3 merge staging the raw section(s) -> K13 (16-bit, ``fused=False``)
-  or K7 joins planes and sections into float words (the JAX package's
-  two-pass branch);
+  -> per plane, ANS parse, validation and a K6 decode to bytes (in place)
+  -> one K3 merge staging the raw section(s) -> K13 (16-bit,
+  ``fused=False``) or K7 joins planes and sections into float words (the
+  JAX package's two-pass branch);
 * verify_checksum folds the XOR of the decoded bytes in plain torch
   (the JAX package's ``float_codec.py:453-457``).
 
@@ -319,21 +320,17 @@ def float_decompress_core(
                 for i, w in enumerate(widths)]
 
     if fused:
-        # raw sections staged block-major: per 4096-float block 1024 raw
-        # words (16-bit), or 2048 sec1 and 1024 sec2 words (fp32)
-        NB = max(1, -(-out_floats // BLOCK_SIZE))
+        # the decode reads the raw sections in place: per 4096-float block
+        # 1024 raw words (16-bit), or 2048 sec1 and 1024 sec2 words (fp32)
         if ft in _FLOAT16_TYPES:
-            (raw32,) = stage([NB * 1024])
             words32, ok, psize, _ = ans_decode_join16_core(
-                comp32, ans_base, raw32.reshape(B, NB, 1024), out_floats,
-                prob_bits, ft == FloatType.BFLOAT16, capacities, native, plain,
+                comp32, ans_base, abs_base + o_s1, out_floats, prob_bits,
+                ft == FloatType.BFLOAT16, capacities, native, plain,
             )
         else:
-            sec1, sec2 = stage([NB * 2048, NB * 1024])
             words32, ok, psize, _ = ans_decode_join32_core(
-                comp32, ans_base, sec1.reshape(B, NB, 2048),
-                sec2.reshape(B, NB, 1024), out_floats, prob_bits, capacities,
-                native, plain,
+                comp32, ans_base, abs_base + o_s1, abs_base + o_s2, out_floats,
+                prob_bits, capacities, native, plain,
             )
             if 4 * E > out_floats:  # the two-pass width, 4E words
                 words32 = F.pad(words32, (0, 4 * E - out_floats))

@@ -4,11 +4,16 @@
     out[j] = 0                                   where no run covers j
 
 The merge places every piece of an archive (float header, raw section,
-ANS metadata, row streams) in one pass on compress, and stages the raw
-section, the states and blockWords, and the row streams on decompress.
+ANS metadata, row streams) in one pass on compress, and on decompress
+stages the raw sections of the two-pass float decode and the sparse
+bitmap; the rANS decode reads its streams, states and (fused) raw
+sections from the archive in place.
 
-Destinations are sorted and do not overlap (a zero-length run may sit
-anywhere at or after the end of the run before it). Offsets are int64
+Runs have nondecreasing ends (dst + lens); destinations are sorted and do
+not overlap (a zero-length run may sit anywhere at or after the end of the
+run before it). Word j takes the first run whose end lies past j. At
+most ``MAX_MERGE_SOURCES`` (8) sources, on every device: K3 takes them by
+value. Offsets are int64
 throughout, and the source ref is an explicit index per run: the JAX
 package's packing of the ref into the offset's top bits (``_RSH = 28``)
 is not ported. A read past the end of a source (a corrupt archive) takes
@@ -20,7 +25,8 @@ K3 replaces both Pallas merges: ``merge.py:305`` ``_merge2_kernel`` (the
 multi-source merge) and, called with one source, ``merge.py:74``
 ``_merge_kernel`` (the v1 single-source merge, entry ``_runs_merge_tpu``),
 whose contract is this one with ``srcs = [src_flat]`` and every ref 0.
-Every decode path of the port stages through such single-source calls.
+The two-pass float decode's raw staging and the sparse decode's bitmap
+staging are such single-source calls.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from ..core.config import use_kernels
 from ..runtime import cuda_kernels as K
+from ..runtime.cuda_kernels import MAX_MERGE_SOURCES
 
 
 def _check_merge_args(srcs, dst, ref, off, lens, out_len):
@@ -67,6 +74,9 @@ def runs_merge(
     ref: int32[R] indices into srcs. Returns int32[out_len]."""
     srcs = list(srcs)
     _check_merge_args(srcs, dst, ref, off, lens, out_len)
+    if len(srcs) > MAX_MERGE_SOURCES:
+        raise ValueError(f"runs_merge takes at most {MAX_MERGE_SOURCES} "
+                         f"sources, not {len(srcs)}")
     if use_kernels(dst):
         return K.runs_merge(srcs, dst, ref, off, lens, out_len)
     return runs_merge_plain(srcs, dst, ref, off, lens, out_len)

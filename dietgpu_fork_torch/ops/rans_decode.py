@@ -13,21 +13,31 @@ over a group of one block (the JAX package's ``ops/rans_decode.py:40``,
 ``decode_blocks``, whose top-aligned schedule visits the same positions).
 Symbols at or past a block's decoded count are 0.
 
-* ``decode_rows`` / ``decode_blocks`` pack the symbols into u32 words: the
-  contract of ``decode_blocks_rows`` / ``decode_blocks`` and of the Pallas
-  ``decode_blocks_fused2`` with ``row_stream=True`` / ``False``.
-* ``decode_join16`` / ``decode_join16_blocks`` join each exponent byte
-  with its raw byte (``float_split.py:193-202``): out = raw | sym << 8,
-  rotated right by 1 within 16 bits for bf16, and 0 at positions at or
-  past a block's count.
-* ``decode_join32`` / ``decode_join32_blocks`` join each exponent byte
-  with the float's low 16 bits and third byte from the block-major raw
-  sections (the Pallas ``decode_join32_fused``, mode JOIN_F32): out =
-  ror1(low16 | third << 16 | sym << 24), 0 at positions at or past a
-  block's count.
+The decode reads the archive in place: ``decode_at`` takes the archive's
+u32 words and, for each stream, its first word and length; for each
+member, where block 0's states lie (block b's at + 32 b) and, fused, where
+its raw sections lie. A stream read below its first word takes that word,
+one at or past its length gives 0, and every other read outside the words
+is clamped into them: the walk sees what a staging copy would hold.
+``decode_at_plain`` stages with the plain merge and runs the walk; it is
+the kernels' contract. Epilogues (chosen by the offsets given):
 
-All send CUDA tensors to the kernels (``csrc/rans_decode_rows.cu``) and
-CPU tensors to the plain versions.
+* none: the symbols packed into u32 words, the contract of
+  ``decode_blocks_rows`` / ``decode_blocks`` and of the Pallas
+  ``decode_blocks_fused2`` with ``row_stream=True`` / ``False`` (K6);
+* ``raw_off``: each exponent byte joined with its raw byte
+  (``float_split.py:193-202``): out = raw | sym << 8, rotated right by 1
+  within 16 bits for bf16 (K4);
+* ``raw_off`` (sec1) and ``sec2_off``: each exponent byte joined with the
+  float's low 16 bits and third byte (the Pallas ``decode_join32_fused``,
+  mode JOIN_F32): out = ror1(low16 | third << 16 | sym << 24) (K12).
+
+The staged forms (``decode_rows``, ``decode_blocks``, ``decode_join16``,
+``decode_join16_blocks``, ``decode_join32``, ``decode_join32_blocks``)
+take start-aligned staged tensors; they lay them end to end and call
+``decode_at``. Their ``*_plain`` twins run the walk on the staged tensors
+directly, as the JAX functions do. CUDA tensors go to the kernels
+(``csrc/rans_decode_rows.cu``), CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from ..core.config import use_kernels
 from ..core.constants import (
     ANS_MIN_STATE,
     BLOCK_SIZE,
+    MAX_BLOCK_WORDS32,
+    MAX_ROW_WORDS32,
     STEPS_PER_BLOCK,
     VALID_PROB_BITS,
     WARP_SIZE,
@@ -47,6 +59,20 @@ from ..core.constants import (
 from ..runtime import cuda_kernels as K
 from .bitops import M32, from_u32, to_u32
 from .float_split import join16, join_wide_plain, pack_bytes, unpack_bytes
+from .merge import runs_merge_plain
+
+# the longest stream the decode reads, in u32 words: the worst-case row or
+# block (MAX_ROW_WORDS32, MAX_BLOCK_WORDS32) plus slack; a longer length
+# is cut to it
+ROW_STREAM_CAP = MAX_ROW_WORDS32 + 8
+BLOCK_STREAM_CAP = MAX_BLOCK_WORDS32 + 8
+# the kernel wrapper of each (epilogue, layout): epilogue 0 bytes, 1 the
+# 16-bit join, 2 the fp32 join; layout True rows, False classic
+_WRAPPERS = {
+    (0, True): "decode_rows", (0, False): "decode_blocks",
+    (1, True): "decode_join16", (1, False): "decode_join16_blocks",
+    (2, True): "decode_join32", (2, False): "decode_join32_blocks",
+}
 
 
 def _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
@@ -82,6 +108,131 @@ def _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_at_args(words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut,
+                   prob_bits, group, raw_off, sec2_off):
+    if prob_bits not in VALID_PROB_BITS:
+        raise ValueError(f"prob_bits must be one of {VALID_PROB_BITS}")
+    if words.dtype != torch.int32 or words.dim() != 1 or words.numel() == 0:
+        raise TypeError("words must be a non-empty 1-D torch.int32 tensor")
+    if comp_w.dim() != 2:
+        raise TypeError("comp_w must be [B, NB]")
+    if sec2_off is not None and raw_off is None:
+        raise ValueError("the fp32 join takes raw_off (sec1) with sec2_off")
+    B, NB = comp_w.shape
+    NSEG = -(-NB // group)
+    checks = [
+        ("words", words, torch.int32, words.shape),
+        ("seg_off", seg_off, torch.int64, (B, NSEG)),
+        ("seg_len", seg_len, torch.int64, (B, NSEG)),
+        ("comp_w", comp_w, torch.int32, (B, NB)),
+        ("uncomp_w", uncomp_w, torch.int32, (B, NB)),
+        ("state_off", state_off, torch.int64, (B,)),
+        ("lut", lut, torch.int32, (B, 1 << prob_bits)),
+    ]
+    for name, t in (("raw_off", raw_off), ("sec2_off", sec2_off)):
+        if t is not None:
+            checks.append((name, t, torch.int64, (B,)))
+    for name, t, dt, shape in checks:
+        if t.dtype != dt or tuple(t.shape) != tuple(shape):
+            raise TypeError(f"{name} must be {dt} of shape {tuple(shape)}")
+        if t.device != words.device:
+            raise ValueError("all inputs must lie on one device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def decode_at(words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut,
+              prob_bits: int, rows: bool = True, raw_off=None, sec2_off=None,
+              bf16: bool = False) -> torch.Tensor:
+    """Decode every block of a batch from the archive words in place.
+
+    words: int32[N] archive words (u32); seg_off / seg_len: int64[B, NSEG]
+    each stream's first word in ``words`` and its length in words (one
+    stream per row of 4 blocks if rows, else per block; 0 for dead ones);
+    comp_w / uncomp_w: int32[B, NB] per-block u16 word and byte counts
+    (uncomp_w <= 4096; 0 for dead blocks); state_off: int64[B] the word of
+    block 0's 32 states; lut: int32[B, 2^prob_bits] from
+    ``build_decode_table_batched``. raw_off: int64[B], the word of block 0's
+    raw words (1024 a block: the 16-bit join), or of its sec1 words (2048
+    a block) with sec2_off: int64[B], block 0's sec2 words (1024 a block:
+    the fp32 join). Returns int32[B, NB, 1024] packed bytes, [B, NB, 2048]
+    16-bit floats or [B, NB, 4096] fp32 words, zero past each block's
+    count.
+    """
+    _check_at_args(words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut,
+                   prob_bits, 4 if rows else 1, raw_off, sec2_off)
+    args = (words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut,
+            prob_bits, raw_off, sec2_off, bool(bf16))
+    if use_kernels(words):
+        epi = (raw_off is not None) + (sec2_off is not None)
+        return getattr(K, _WRAPPERS[epi, bool(rows)])(*args)
+    return decode_at_plain(*args, rows=rows)
+
+
+def decode_at_plain(words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut,
+                    prob_bits: int, raw_off=None, sec2_off=None,
+                    bf16: bool = False, rows: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the in-place decode (K4, K6, K12 in either
+    layout); runs on any device. Stages each stream, cut to the stream cap,
+    into a row one word wider than the cap, the states and the raw
+    sections with the plain merge, then runs the walk."""
+    group = 4 if rows else 1
+    _check_at_args(words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut,
+                   prob_bits, group, raw_off, sec2_off)
+    B, NB = comp_w.shape
+    cap = ROW_STREAM_CAP if rows else BLOCK_STREAM_CAP
+    streams = _stage(words, seg_off.reshape(-1),
+                     seg_len.clamp(0, cap).reshape(-1), cap + 1).reshape(B, -1, cap + 1)
+    states = _stage(words, state_off, 32 * NB).reshape(B, NB, WARP_SIZE)
+    sym = _walk(streams, comp_w, uncomp_w, states, lut, prob_bits, group)
+    if raw_off is None:
+        return from_u32(pack_bytes(sym))
+    if sec2_off is None:
+        raw32 = _stage(words, raw_off, NB * (BLOCK_SIZE // 4))
+        return _join(sym, uncomp_w, raw32.reshape(B, NB, -1), bf16)
+    sec1 = _stage(words, raw_off, NB * (BLOCK_SIZE // 2))
+    sec2 = _stage(words, sec2_off, NB * (BLOCK_SIZE // 4))
+    return _join32(sym, uncomp_w, sec1.reshape(B, NB, -1), sec2.reshape(B, NB, -1))
+
+
+def _stage(words, starts, counts, width=None):
+    """int32[n, width]: row i holds counts[i] words of ``words`` from
+    starts[i] (reads clamped into them), then zeros. counts: a tensor, or
+    one int that is also the width."""
+    n = starts.shape[0]
+    dev = words.device
+    if not isinstance(counts, torch.Tensor):
+        width = counts
+        counts = torch.full((n,), counts, dtype=torch.int64, device=dev)
+    return runs_merge_plain(
+        [words], torch.arange(n, dtype=torch.int64, device=dev) * width,
+        torch.zeros(n, dtype=torch.int32, device=dev), starts, counts,
+        n * width,
+    ).reshape(n, width)
+
+
+def _as_archive(streams, states, sections, cap: int):
+    """Staged tensors laid end to end as archive words, for ``decode_at``:
+    (words, seg_off and seg_len over the staged rows, state_off, the
+    members' offsets of each section). Each staged row is one stream."""
+    B, NSEG, SW = streams.shape
+    if SW > cap:
+        raise ValueError(f"staged streams of {SW} words pass the {cap}-word "
+                         "stream cap")
+    dev = streams.device
+    parts = [streams, states, *sections]
+    words = torch.cat([p.reshape(-1) for p in parts])
+    starts, at = [], 0
+    b = torch.arange(B, dtype=torch.int64, device=dev)
+    for p in parts:
+        starts.append(at + b * (p.numel() // B))
+        at += p.numel()
+    seg_off = (torch.arange(B * NSEG, dtype=torch.int64, device=dev) * SW
+               ).reshape(B, NSEG)
+    seg_len = torch.full((B, NSEG), SW, dtype=torch.int64, device=dev)
+    return words, seg_off, seg_len, starts[1], starts[2:]
+
+
 def decode_rows(streams, comp_w, uncomp_w, states, lut,
                 prob_bits: int) -> torch.Tensor:
     """Decode every block of a batch into packed bytes.
@@ -93,9 +244,8 @@ def decode_rows(streams, comp_w, uncomp_w, states, lut,
     int32[B, NB, 1024]: four bytes per word, zero past each block's count.
     """
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits)
-    if use_kernels(streams):
-        return K.decode_rows(streams, comp_w, uncomp_w, states, lut, prob_bits)
-    return decode_rows_plain(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    words, so, sl, st, _ = _as_archive(streams, states, [], ROW_STREAM_CAP)
+    return decode_at(words, so, sl, comp_w, uncomp_w, st, lut, prob_bits)
 
 
 def decode_rows_plain(streams, comp_w, uncomp_w, states, lut,
@@ -112,9 +262,9 @@ def decode_blocks(streams, comp_w, uncomp_w, states, lut,
     start-aligned staged block streams."""
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
                        group=1)
-    if use_kernels(streams):
-        return K.decode_blocks(streams, comp_w, uncomp_w, states, lut, prob_bits)
-    return decode_blocks_plain(streams, comp_w, uncomp_w, states, lut, prob_bits)
+    words, so, sl, st, _ = _as_archive(streams, states, [], BLOCK_STREAM_CAP)
+    return decode_at(words, so, sl, comp_w, uncomp_w, st, lut, prob_bits,
+                     rows=False)
 
 
 def decode_blocks_plain(streams, comp_w, uncomp_w, states, lut,
@@ -135,13 +285,10 @@ def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
     per word, zero past each block's count.
     """
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits, raw32)
-    if use_kernels(streams):
-        return K.decode_join16(
-            streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
-        )
-    return decode_join16_plain(
-        streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
-    )
+    words, so, sl, st, (ro,) = _as_archive(streams, states, [raw32],
+                                           ROW_STREAM_CAP)
+    return decode_at(words, so, sl, comp_w, uncomp_w, st, lut, prob_bits,
+                     raw_off=ro, bf16=bf16)
 
 
 def decode_join16_plain(streams, comp_w, uncomp_w, states, lut, raw32,
@@ -158,13 +305,10 @@ def decode_join16_blocks(streams, comp_w, uncomp_w, states, lut, raw32,
     int32[B, NB, SW] start-aligned staged block streams."""
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
                        raw32, group=1)
-    if use_kernels(streams):
-        return K.decode_join16_blocks(
-            streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
-        )
-    return decode_join16_blocks_plain(
-        streams, comp_w, uncomp_w, states, lut, raw32, prob_bits, bf16
-    )
+    words, so, sl, st, (ro,) = _as_archive(streams, states, [raw32],
+                                           BLOCK_STREAM_CAP)
+    return decode_at(words, so, sl, comp_w, uncomp_w, st, lut, prob_bits,
+                     rows=False, raw_off=ro, bf16=bf16)
 
 
 def decode_join16_blocks_plain(streams, comp_w, uncomp_w, states, lut, raw32,
@@ -187,11 +331,10 @@ def decode_join32(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
     """
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
                        sec1, sec2=sec2)
-    if use_kernels(streams):
-        return K.decode_join32(streams, comp_w, uncomp_w, states, lut, sec1,
-                               sec2, prob_bits)
-    return decode_join32_plain(streams, comp_w, uncomp_w, states, lut, sec1,
-                               sec2, prob_bits)
+    words, so, sl, st, (o1, o2) = _as_archive(streams, states, [sec1, sec2],
+                                              ROW_STREAM_CAP)
+    return decode_at(words, so, sl, comp_w, uncomp_w, st, lut, prob_bits,
+                     raw_off=o1, sec2_off=o2)
 
 
 def decode_join32_plain(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
@@ -209,11 +352,10 @@ def decode_join32_blocks(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
     int32[B, NB, SW] start-aligned staged block streams."""
     _check_decode_args(streams, comp_w, uncomp_w, states, lut, prob_bits,
                        sec1, group=1, sec2=sec2)
-    if use_kernels(streams):
-        return K.decode_join32_blocks(streams, comp_w, uncomp_w, states, lut,
-                                      sec1, sec2, prob_bits)
-    return decode_join32_blocks_plain(streams, comp_w, uncomp_w, states, lut,
-                                      sec1, sec2, prob_bits)
+    words, so, sl, st, (o1, o2) = _as_archive(streams, states, [sec1, sec2],
+                                              BLOCK_STREAM_CAP)
+    return decode_at(words, so, sl, comp_w, uncomp_w, st, lut, prob_bits,
+                     rows=False, raw_off=o1, sec2_off=o2)
 
 
 def decode_join32_blocks_plain(streams, comp_w, uncomp_w, states, lut, sec1,

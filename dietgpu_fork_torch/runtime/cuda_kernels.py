@@ -158,19 +158,14 @@ def library() -> ctypes.CDLL:
         "dgt_split16_hist": [P, L, L, P, I, P, P, P, P, P],
         "dgt_rans_encode_rows": [P, P, P, P, L, L, I, P, P, P, P],
         "dgt_runs_merge": [P, P, I, P, P, P, P, L, P, L, P],
-        "dgt_rans_decode_join16": [P, L, P, P, P, P, I, P, L, L, I, P, P],
+        "dgt_rans_decode": [I, I, P, L, P, P, P, P, P, P, I, P, P, L, L, I, P, P],
         "dgt_split_wide_hist": [P, L, L, P, I, P, P, P, P, P, P],
-        "dgt_rans_decode_rows": [P, L, P, P, P, P, I, L, L, P, P],
         "dgt_join_wide": [P, L, P, L, P, L, P, L, L, L, I, P, P],
         "dgt_byte_hist": [P, L, L, P, P, P, P],
         "dgt_rans_encode_blocks": [P, P, P, P, L, L, I, P, P, P, P],
-        "dgt_rans_decode_blocks": [P, L, P, P, P, P, I, L, L, P, P],
-        "dgt_rans_decode_join16_blocks": [P, L, P, P, P, P, I, P, L, L, I, P, P],
         "dgt_bitmap_pack": [P, L, L, L, P, L, I, P, P],
         "dgt_sparse_compact": [P, L, L, L, P, P, L, I, P, L, P],
         "dgt_sparse_expand": [P, L, L, L, P, P, L, P, I, P, L, P],
-        "dgt_rans_decode_join32": [P, L, P, P, P, P, I, P, P, L, L, P, P],
-        "dgt_rans_decode_join32_blocks": [P, L, P, P, P, P, I, P, P, L, L, P, P],
         "dgt_join16": [P, L, P, L, L, L, I, P, P],
         "dgt_split16": [P, L, L, I, P, P, P],
         "dgt_split_wide": [P, L, L, I, P, P, P, P],
@@ -267,86 +262,101 @@ def encode_blocks(x32, sizes, packed, magic, prob_bits: int):
                    packed, magic, prob_bits, classic=True)
 
 
+MAX_MERGE_SOURCES = 8  # K3 takes its sources by value
+
+
 def runs_merge(srcs: Sequence[torch.Tensor], dst, ref, off, lens, out_len: int):
-    """K3 launch; arguments as ``ops.merge.runs_merge``."""
+    """K3 launch; arguments as ``ops.merge.runs_merge``. The source
+    pointers and lengths go to the kernel by value: no device copy."""
     srcs: List[torch.Tensor] = list(srcs)
     _cuda_only(dst, ref, off, lens, *srcs)
+    if not 0 < len(srcs) <= MAX_MERGE_SOURCES:
+        raise ValueError(f"runs_merge takes 1 to {MAX_MERGE_SOURCES} sources, "
+                         f"not {len(srcs)}")
     dev = dst.device
     out = torch.empty((out_len,), dtype=torch.int32, device=dev)
     if out_len == 0:
         return out
-    ptrs = torch.tensor([s.data_ptr() for s in srcs], dtype=torch.int64).to(dev)
-    src_len = torch.tensor([s.numel() for s in srcs], dtype=torch.int64).to(dev)
+    ptrs = (ctypes.c_void_p * MAX_MERGE_SOURCES)(*[s.data_ptr() for s in srcs])
+    src_len = (ctypes.c_longlong * MAX_MERGE_SOURCES)(*[s.numel() for s in srcs])
     lib = library()
     with torch.cuda.device(dev):
         err = lib.dgt_runs_merge(
-            ptrs.data_ptr(), src_len.data_ptr(), len(srcs), dst.data_ptr(),
-            ref.data_ptr(), off.data_ptr(), lens.data_ptr(), dst.shape[0],
-            out.data_ptr(), out_len, _stream(dst),
+            ctypes.addressof(ptrs), ctypes.addressof(src_len), len(srcs),
+            dst.data_ptr(), ref.data_ptr(), off.data_ptr(), lens.data_ptr(),
+            dst.shape[0], out.data_ptr(), out_len, _stream(dst),
         )
     _check(lib, err, "runs_merge")
     launches["runs_merge"] += 1
     return out
 
 
-def _decode(fn: str, counter: str, streams, comp_w, uncomp_w, states, lut,
-            prob_bits: int, raw32=None, bf16: bool = False, sec2=None):
-    """K6 (no raw32), K4 (raw32) or K12 (raw32 = sec1, and sec2)."""
-    extra = tuple(t for t in (raw32, sec2) if t is not None)
-    _cuda_only(streams, comp_w, uncomp_w, states, lut, *extra)
-    B, _, SW = streams.shape
+# the decode epilogues of dgt_rans_decode: K6, K4, K12
+_BYTES, _JOIN16, _JOIN32 = 0, 1, 2
+
+
+def _decode(counter: str, epi: int, classic: bool, words, seg_off, seg_len,
+            comp_w, uncomp_w, state_off, lut, prob_bits: int, raw_off,
+            sec2_off, bf16: bool):
+    """One launch of the in-place decode walk (K6, K4 or K12, row or
+    classic layout); arguments as ``ops.rans_decode.decode_at``."""
+    if (raw_off is None) != (epi == _BYTES) or (sec2_off is None) != (epi != _JOIN32):
+        raise ValueError(f"{counter} takes {('no', 'the raw', 'the sec1 and sec2')[epi]}"
+                         " section offsets")
+    extra = tuple(t for t in (raw_off, sec2_off) if t is not None)
+    _cuda_only(words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut, *extra)
+    B, NB = comp_w.shape
     _batch_ok(B)
-    NB = comp_w.shape[1]
-    dev = streams.device
-    width = 1024 if raw32 is None else (2048 if sec2 is None else 4096)
-    out = torch.empty((B, NB, width), dtype=torch.int32, device=dev)
+    dev = words.device
+    out = torch.empty((B, NB, 1024 << epi), dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
-        args = [streams.data_ptr(), SW, comp_w.data_ptr(), uncomp_w.data_ptr(),
-                states.data_ptr(), lut.data_ptr(), prob_bits]
-        if raw32 is None:
-            args += [B, NB]
-        elif sec2 is None:
-            args += [raw32.data_ptr(), B, NB, int(bf16)]
-        else:
-            _aligned(raw32, 8, "sec1")
-            args += [raw32.data_ptr(), sec2.data_ptr(), B, NB]
-        err = getattr(lib, fn)(*args, out.data_ptr(), _stream(streams))
+        err = lib.dgt_rans_decode(
+            epi, int(classic), words.data_ptr(), words.numel(),
+            seg_off.data_ptr(), seg_len.data_ptr(), comp_w.data_ptr(),
+            uncomp_w.data_ptr(), state_off.data_ptr(), lut.data_ptr(),
+            prob_bits, None if raw_off is None else raw_off.data_ptr(),
+            None if sec2_off is None else sec2_off.data_ptr(), B, NB,
+            int(bf16), out.data_ptr(), _stream(words),
+        )
     _check(lib, err, counter)
     launches[counter] += 1
     return out
 
 
-def decode_join16(streams, comp_w, uncomp_w, states, lut, raw32,
-                  prob_bits: int, bf16: bool):
-    """K4 launch, row layout; arguments as ``ops.rans_decode.decode_join16``."""
-    return _decode("dgt_rans_decode_join16", "rans_decode_join16", streams,
-                   comp_w, uncomp_w, states, lut, prob_bits, raw32, bf16)
+# The six decode wrappers take the arguments of ``ops.rans_decode.decode_at``
+# in its order: (words, seg_off, seg_len, comp_w, uncomp_w, state_off, lut,
+# prob_bits, raw_off, sec2_off, bf16), with None for the offsets their
+# epilogue does not read.
+
+def decode_rows(*args):
+    """K6 launch, row layout."""
+    return _decode("rans_decode_rows", _BYTES, False, *args)
 
 
-def decode_join16_blocks(streams, comp_w, uncomp_w, states, lut, raw32,
-                         prob_bits: int, bf16: bool):
-    """K4 launch, classic layout; arguments as
-    ``ops.rans_decode.decode_join16_blocks``."""
-    return _decode("dgt_rans_decode_join16_blocks", "rans_decode_join16_blocks",
-                   streams, comp_w, uncomp_w, states, lut, prob_bits, raw32,
-                   bf16)
+def decode_blocks(*args):
+    """K6 launch, classic layout."""
+    return _decode("rans_decode_blocks", _BYTES, True, *args)
 
 
-def decode_join32(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
-                  prob_bits: int):
-    """K12 launch, row layout; arguments as ``ops.rans_decode.decode_join32``."""
-    return _decode("dgt_rans_decode_join32", "rans_decode_join32", streams,
-                   comp_w, uncomp_w, states, lut, prob_bits, sec1, sec2=sec2)
+def decode_join16(*args):
+    """K4 launch, row layout."""
+    return _decode("rans_decode_join16", _JOIN16, False, *args)
 
 
-def decode_join32_blocks(streams, comp_w, uncomp_w, states, lut, sec1, sec2,
-                         prob_bits: int):
-    """K12 launch, classic layout; arguments as
-    ``ops.rans_decode.decode_join32_blocks``."""
-    return _decode("dgt_rans_decode_join32_blocks", "rans_decode_join32_blocks",
-                   streams, comp_w, uncomp_w, states, lut, prob_bits, sec1,
-                   sec2=sec2)
+def decode_join16_blocks(*args):
+    """K4 launch, classic layout."""
+    return _decode("rans_decode_join16_blocks", _JOIN16, True, *args)
+
+
+def decode_join32(*args):
+    """K12 launch, row layout."""
+    return _decode("rans_decode_join32", _JOIN32, False, *args)
+
+
+def decode_join32_blocks(*args):
+    """K12 launch, classic layout."""
+    return _decode("rans_decode_join32_blocks", _JOIN32, True, *args)
 
 
 def _aligned(t: torch.Tensor, nbytes: int, name: str) -> None:
@@ -436,19 +446,6 @@ def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
     _check(lib, err, "join16")
     launches["join16"] += 1
     return out
-
-
-def decode_rows(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
-    """K6 launch, row layout; arguments as ``ops.rans_decode.decode_rows``."""
-    return _decode("dgt_rans_decode_rows", "rans_decode_rows", streams, comp_w,
-                   uncomp_w, states, lut, prob_bits)
-
-
-def decode_blocks(streams, comp_w, uncomp_w, states, lut, prob_bits: int):
-    """K6 launch, classic layout; arguments as
-    ``ops.rans_decode.decode_blocks``."""
-    return _decode("dgt_rans_decode_blocks", "rans_decode_blocks", streams,
-                   comp_w, uncomp_w, states, lut, prob_bits)
 
 
 def join_wide(planes, sec1, sec2, float_type):

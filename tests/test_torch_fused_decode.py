@@ -155,8 +155,9 @@ def test_corrupt_archive_fails_alike_on_every_route(rng, ft, how, native):
 
 
 def _coded_planes(rng, sizes, native):
-    """Exponent-like bytes of each size, ANS-coded and staged as the
-    decoders take them: (byte rows uint8[B, NB*4096], StagedANS, lut)."""
+    """Exponent-like bytes of each size, ANS-coded and parsed as the
+    decoders read them: (byte rows uint8[B, NB*4096], the archive rows
+    int32[B, CW], ParsedANS, lut)."""
     NB = max(1, -(-max(sizes) // 4096))
     x = np.zeros((len(sizes), NB * 4096), np.uint8)
     for b, s in enumerate(sizes):
@@ -165,21 +166,27 @@ def _coded_planes(rng, sizes, native):
     out, _ = TA.ans_encode_core(rows_from_numpy(x.view(np.uint32)),
                                 torch.tensor(sizes, dtype=torch.int32), 10,
                                 s_bytes=cap, native=native)
-    st = TA._ans_parse_and_stage(out, torch.zeros(len(sizes), dtype=torch.int64),
-                                 cap, None, 10, native)
-    return x, st, from_u32(build_decode_table_batched(st.pdf, 10))
+    p = TA._ans_parse(out, torch.zeros(len(sizes), dtype=torch.int64), cap,
+                      None, 10, native)
+    return x, out, p, from_u32(build_decode_table_batched(p.pdf, 10))
 
 
 @pytest.mark.parametrize("native", [True, False])
 def test_decode_join32_plain_equals_jax_join_packed(rng, native):
+    """The in-place fp32 join (sections after the archives) and its staged
+    form, each against the JAX package's join_packed."""
     sizes = [4 * 4096 + 77, 1, 4096, 0, 9000]
-    x, st, lut = _coded_planes(rng, sizes, native)
-    B, NB = st.comp_w.shape
+    x, arc, p, lut = _coded_planes(rng, sizes, native)
+    B, NB = p.comp_w.shape
     sec1 = rng.integers(0, 1 << 32, (B, NB, 2048), dtype=np.uint64).astype(np.uint32)
     sec2 = rng.integers(0, 1 << 32, (B, NB, 1024), dtype=np.uint64).astype(np.uint32)
-    fn = TD.decode_join32 if native else TD.decode_join32_blocks
-    got = fn(st.streams, st.comp_w, st.uncomp_w, st.states, lut,
-             rows_from_numpy(sec1), rows_from_numpy(sec2), 10)
+    words = torch.cat([arc.reshape(-1), rows_from_numpy(sec1).reshape(-1),
+                       rows_from_numpy(sec2).reshape(-1)])
+    b = torch.arange(B, dtype=torch.int64)
+    o1 = arc.numel() + b * NB * 2048
+    o2 = arc.numel() + sec1.size + b * NB * 1024
+    got = TD.decode_at(words, p.seg_off, p.seg_len, p.comp_w, p.uncomp_w,
+                       p.state_off, lut, 10, native, o1, o2)
     assert got.shape == (B, NB, 4096)
     want = np.asarray(join_packed(
         [jnp.asarray(x.view(np.uint32))],
@@ -187,6 +194,14 @@ def test_decode_join32_plain_equals_jax_join_packed(rng, native):
         JFT.FLOAT32))
     want = np.where(np.arange(NB * 4096)[None] < np.array(sizes)[:, None], want, 0)
     assert np.array_equal(rows_to_numpy(got).reshape(B, -1), want)
+    cap = TD.ROW_STREAM_CAP if native else TD.BLOCK_STREAM_CAP
+    streams = TD._stage(words, p.seg_off.reshape(-1), p.seg_len.reshape(-1),
+                        cap).reshape(B, -1, cap)
+    states = TD._stage(words, p.state_off, 32 * NB).reshape(B, NB, 32)
+    fn = TD.decode_join32 if native else TD.decode_join32_blocks
+    staged = fn(streams, p.comp_w, p.uncomp_w, states, lut,
+                rows_from_numpy(sec1), rows_from_numpy(sec2), 10)
+    assert torch.equal(staged, got)
 
 
 @pytest.mark.parametrize("extra", [0, 3])

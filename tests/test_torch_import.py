@@ -129,25 +129,29 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     from dietgpu_fork_torch.runtime import cuda_kernels as K
 
     t = torch.zeros((1, 1024), dtype=torch.int32)
+    i64 = t[0, :1].long()
+    # the in-place decode's (words, seg_off, seg_len, comp_w, uncomp_w,
+    # state_off, lut)
+    at = (t[0], t[:, :1].long(), t[:, :1].long(), t, t, i64, t)
     args = {
         "split16_hist": (t, t[0, :1], True),
         "encode_rows": (t, t[0, :1], t[:, :256], t[:, :256], 10),
         "runs_merge": ([t[0]], t[0, :1].long(), t[0, :1], t[0, :1].long(),
                        t[0, :1].long(), 4),
-        "decode_join16": (t[None], t, t, t, t, t, 10, True),
+        "decode_join16": at + (10, i64, None, True),
         "split_wide_hist": (t, t[0, :1], T.FloatType.FLOAT32),
-        "decode_rows": (t[None], t, t, t, t, 10),
+        "decode_rows": at + (10, None, None, False),
         "join_wide": ([t], t, t, T.FloatType.FLOAT32),
         "byte_hist": (t.view(torch.uint8), t[0, :1]),
         "encode_blocks": (t, t[0, :1], t[:, :256], t[:, :256], 10),
-        "decode_blocks": (t[None], t, t, t, t, 10),
-        "decode_join16_blocks": (t[None], t, t, t, t, t, 10, True),
+        "decode_blocks": at + (10, None, None, False),
+        "decode_join16_blocks": at + (10, i64, None, True),
         "pack_bitmap": (t, t[0, :1], T.FloatType.FLOAT32),
         "compact_by_bitmap": (t, t[:, :32], t[:, :33], T.FloatType.FLOAT32),
         "expand_by_bitmap": (t, t[:, :32], t[:, :33], t[0, :1], 1024,
                              T.FloatType.FLOAT32),
-        "decode_join32": (t[None], t, t, t, t, t, t, 10),
-        "decode_join32_blocks": (t[None], t, t, t, t, t, t, 10),
+        "decode_join32": at + (10, i64, i64, False),
+        "decode_join32_blocks": at + (10, i64, i64, False),
         "join16_rows": (t, t, True),
         "split16": (t, True),
         "split_wide": (t, T.FloatType.FLOAT64),

@@ -102,3 +102,55 @@ def test_runs_merge_rejects_bad_arguments():
         TM.runs_merge([], dst, ok["ref"], dst, dst, 4)
     with pytest.raises(ValueError):
         TM.runs_merge(s, dst, ok["ref"], dst, dst, -1)
+
+
+# K3 works in tiles of 8192 output words and holds 256 run descriptors at a
+# time; the plain version, its contract, is unchanged. These cases sit on
+# those edges.
+TILE = 8192
+
+
+def test_runs_merge_runs_at_tile_boundaries_equal_jax():
+    """Runs ending and starting on tile boundaries, zero-length runs there,
+    a gap across one and a run straddling one."""
+    srcs = _srcs(11, [40000])
+    dst = [0, TILE, TILE, TILE, 2 * TILE - 3, 3 * TILE + 5, 4 * TILE]
+    lens = [TILE, 0, 0, 100, 6, 10, 0]
+    off = [0, 5, 9, 17, 2, 30000, 1]
+    out_len = 4 * TILE + 40
+    got = _port_merge(srcs, dst, [0] * 7, off, lens, out_len)
+    assert np.array_equal(got, _jax_merge(srcs, dst, [0] * 7, off, lens, out_len))
+
+
+def test_runs_merge_run_spanning_many_tiles_equals_jax():
+    srcs = _srcs(12, [7 * TILE + 100, 50])
+    dst, ref, off, lens = [3, 7 * TILE + 10], [0, 1], [1, 0], [7 * TILE + 2, 40]
+    out_len = 8 * TILE
+    got = _port_merge(srcs, dst, ref, off, lens, out_len)
+    assert np.array_equal(got, _jax_merge(srcs, dst, ref, off, lens, out_len))
+    assert not got[7 * TILE + 5: 7 * TILE + 10].any() and not got[:3].any()
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_runs_merge_offsets_not_congruent_equal_jax(shift):
+    """Source and destination offsets that differ mod 4 words: the kernel's
+    4 B path; over more runs than one batch of descriptors."""
+    rng = np.random.default_rng(shift)
+    srcs = _srcs(13, [30000, 20000])
+    R = 700
+    lens = rng.integers(1, 40, R)
+    dst = np.cumsum(rng.integers(0, 3, R) + np.concatenate([[0], lens[:-1]]))
+    ref = rng.integers(0, 2, R)
+    off = (dst + shift) % 4 + 4 * rng.integers(0, 4000, R)
+    out_len = int(dst[-1] + lens[-1] + 9)
+    got = _port_merge(srcs, dst, ref, off, lens, out_len)
+    assert np.array_equal(got, _jax_merge(srcs, dst, ref, off, lens, out_len))
+
+
+def test_runs_merge_takes_at_most_eight_sources():
+    s = [torch.zeros(4, dtype=torch.int32)] * 9
+    one = torch.zeros(1, dtype=torch.int64)
+    ref = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="at most 8"):
+        TM.runs_merge(s, one, ref, one, one, 4)
+    assert TM.runs_merge(s[:8], one, ref, one, one + 2, 4).shape == (4,)
