@@ -4,9 +4,10 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the fourteen CUDA kernels (K1-K14, twelve sources)
+   versions, and builds the fourteen CUDA kernels (K1-K14, eleven sources)
    from ``dietgpu_fork_torch/csrc`` (nvcc, sm_90a, one process per
-   source), printing the build time and ptxas's register and spill report;
+   source), printing the build time, ptxas's register, shared-memory and
+   spill report, and K2's CTAs an SM;
 2. drives each main path once with every kernel wrapper recording its
    calls, then holds each kernel and mode against its plain PyTorch
    version on the recorded inputs (the main path's own shapes), bit for
@@ -48,8 +49,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    v2 dense part, bf16 classic) to their ``GOLDEN_SPARSE_SHA256`` entries;
    the CPU tests hold each equal to the NumPy oracle's archive;
 5. holds K3 to its plain version on ragged runs that exercise its tiles
-   (``phase_k3_ragged``) and the in-place decode at archive offsets that
-   are not 16 B aligned (``phase_misaligned``); checks that a core round
+   (``phase_k3_ragged``), K2 in both layouts and K14 rowwise to theirs on
+   edge inputs (``phase_encode_edges``: prob_bits 9 and 11, ragged sizes
+   with dead blocks in the last row, rows only 4 B aligned, uniform bytes,
+   single-symbol members, a block past the classic cap under the row cap;
+   rowwise rows not a multiple of 8, 1, 5 and 128 indices a row, indices
+   past both ends), and the in-place decode at archive offsets that are
+   not 16 B aligned (``phase_misaligned``); checks that a core round
    trip makes at most ``K3_MAX_LAUNCHES`` K3 launches (phase 3);
    round-trips a ragged bf16 batch of 128 members and ragged fp32 and
    fp64 batches of 64 members, each of up to 128Ki floats; then D, the
@@ -66,8 +72,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 
 ``python3 chip_smoke.py --profile`` instead profiles each main path's
 compress and decompress, each decode formulation's decompress, phase O's
-run and its lookups' library calls (``profile_paths``), and prints no
-result.
+run, each of its lookups alone and their library calls
+(``profile_paths``: the top device ops and every ``csrc`` kernel's device
+time), then times the host work of K14 rowwise's wrapper piece by piece
+(``wrapper_breakdown``), and prints no result.
 
 It exits non-zero, printing no result, when CUDA is not available or any
 phase fails. The line before the last is a JSON object with one entry per
@@ -108,6 +116,7 @@ from dietgpu_fork_torch.models.sparse import (
     sparse_float_decompress_core,
 )
 from dietgpu_fork_torch.ops.bitmap_pack import bitmap_words, pack_bitmap_plain
+from dietgpu_fork_torch.ops.bitops import from_u32
 from dietgpu_fork_torch.ops.float_split import (
     join16_rows,
     join16_rows_plain,
@@ -121,6 +130,8 @@ from dietgpu_fork_torch.ops.float_split import (
 )
 from dietgpu_fork_torch.ops.histogram import byte_hist_plain
 from dietgpu_fork_torch.ops.lookup import (
+    ROWWISE_MAX_K,
+    _check_lookup_args,
     chunked_lookup,
     chunked_lookup_plain,
     rowwise_lookup,
@@ -128,12 +139,18 @@ from dietgpu_fork_torch.ops.lookup import (
 )
 from dietgpu_fork_torch.ops.merge import runs_merge, runs_merge_plain
 from dietgpu_fork_torch.ops.rans_decode import decode_at_plain
-from dietgpu_fork_torch.ops.rans_encode import encode_blocks_plain, encode_rows_plain
+from dietgpu_fork_torch.ops.rans_encode import (
+    encode_blocks,
+    encode_blocks_plain,
+    encode_rows,
+    encode_rows_plain,
+)
 from dietgpu_fork_torch.ops.sparse_stream import (
     _unpack_bits,
     compact_by_bitmap_plain,
     expand_by_bitmap_plain,
 )
+from dietgpu_fork_torch.ops.table import normalize_probs_batched, pack_encode_table
 from dietgpu_fork_torch.runtime import cuda_kernels as K
 
 BF16, FP32, FP64 = FloatType.BFLOAT16, FloatType.FLOAT32, FloatType.FLOAT64
@@ -194,6 +211,19 @@ P_O = "O:ops"
 # phase O's lookups: the bf16 decode's LUT against one index per float, and
 # one row-walk step's stream reads (a staged row each, 128 lanes)
 O_LUT, O_ROWS, O_ROW_WORDS, O_LANES = 1024, 1024, 5120, 128
+
+# K2's edge inputs (``encode_edge_bytes``): EDGE_NB blocks a member, so 5
+# rows, the last with one live block and 3 dead warps.
+# tests/test_torch_encode_edges.py holds the plain versions to the JAX
+# package's encode_blocks_rows / encode_blocks on the same inputs.
+EDGE_NB = 17
+EDGE_CASES = ("ragged", "uniform", "single", "overflow")
+EDGE_PROB_BITS = (9, 11)
+# K14 rowwise edges: (rows, indices a row, idx 16 B aligned), tables of
+# EDGE_H words, indices past both ends
+EDGE_LOOKUPS = ((1027, 1, True), (1027, 5, True), (1027, 128, True),
+                (13, 128, False))
+EDGE_H = 37
 
 # the plain version of the six decode wrappers (K4, K6, K12), which take
 # decode_at's arguments in its order
@@ -715,9 +745,12 @@ class OpsPhase:
         self.lut_idx = ints(-64, O_LUT + 64, (1, MAIN_N))
         self.tabs = ints(-(1 << 31), (1 << 31) - 1, (O_ROWS, O_ROW_WORDS))
         self.tab_idx = ints(-64, O_ROW_WORDS + 64, (O_ROWS, O_LANES))
-        # the lookups' library calls on the same work (``library_call``:
-        # ``torch.gather``, the indices clamped at set-up), for the profile
-        self.gathers = (
+        # for the profile, each lookup alone and its library call on the same
+        # work (``library_call``: ``torch.gather``, the indices clamped at
+        # set-up), each in its own loop
+        self.lookups = (
+            ("chunked lookup", lambda: chunked_lookup(self.lut, self.lut_idx)),
+            ("rowwise lookup", lambda: rowwise_lookup(self.tabs, self.tab_idx)),
             ("chunked gather", library_call("chunked_lookup", (self.lut, self.lut_idx))),
             ("rowwise gather", library_call("rowwise_lookup", (self.tabs, self.tab_idx))))
 
@@ -1009,6 +1042,108 @@ def phase_k3_ragged(dev):
         raise RuntimeError("check failed: K3 took 9 sources")
 
 
+def encode_edge_bytes(case: str):
+    """One of K2's EDGE_CASES: (uint8[B, EDGE_NB * 4096] rows, int32[B]
+    sizes); the bytes past each size are not zero, and must not count.
+    - ragged: skewed bytes, sizes 0, 1, 31, 4095, 4097, all but 5 and all;
+    - uniform: uniform random bytes, the near-worst-case emissions;
+    - single: one byte value a member, which emits nothing;
+    - overflow: a member of 16 blocks of one value after a first block that
+      holds every byte value 16 times, and one of 17 blocks with that block
+      last (the row with dead warps): at prob_bits 11 the 255 rare values
+      get pdf 1, so that block emits more than the classic cap of 2560 u16
+      while its row stays under the row cap of 10240."""
+    rng = np.random.default_rng(40 + EDGE_CASES.index(case))
+    n = EDGE_NB * 4096
+    if case == "ragged":
+        sizes = [0, 1, 31, 4095, 4097, n - 5, n]
+        x = np.minimum(rng.exponential(32.0, (len(sizes), n)), 255).astype(np.uint8)
+    elif case == "uniform":
+        sizes = [n, n - 4097]
+        x = rng.integers(0, 256, (2, n)).astype(np.uint8)
+    elif case == "single":
+        sizes = [n, 3 * 4096 + 1]
+        x = np.full((2, n), 0xA5, np.uint8)
+        x[1, : sizes[1]] = 0
+    elif case == "overflow":
+        sizes = [16 * 4096, n]
+        x = rng.integers(0, 256, (2, n)).astype(np.uint8)
+        x[:, : 16 * 4096] = 0
+        every = rng.permutation(np.repeat(np.arange(256), 16)).astype(np.uint8)
+        x[0, :4096] = every
+        x[1, 16 * 4096:] = every
+    else:
+        raise ValueError(case)
+    return x, np.asarray(sizes, np.int32)
+
+
+def encode_edge_inputs(case: str, prob_bits: int, dev):
+    """K2's arguments for encode_edge_bytes(case) on dev: (x32, sizes,
+    packed, magic), the tables normalised from each member's bytes."""
+    x, sizes = encode_edge_bytes(case)
+    hist = np.stack([np.bincount(r[:s], minlength=256) for r, s in zip(x, sizes)])
+    pdf, cdf, magic, shift = normalize_probs_batched(
+        torch.from_numpy(hist), torch.from_numpy(sizes.astype(np.int64)), prob_bits)
+    packed = from_u32(pack_encode_table(pdf, cdf, shift))
+    return (rows_from_numpy(x.view(np.uint32), dev),
+            torch.from_numpy(sizes).to(dev), packed.to(dev), from_u32(magic).to(dev))
+
+
+def phase_encode_edges(dev):
+    """K2 in both layouts and K14 rowwise against their plain versions on
+    edge inputs, bit for bit: EDGE_CASES at prob_bits 9 and 11 (the ragged
+    case also with rows only 4 B aligned), with the overflow case's block
+    past the classic cap checked; then rowwise lookups of EDGE_LOOKUPS."""
+    for pb in EDGE_PROB_BITS:
+        for case in EDGE_CASES:
+            x32, sizes, packed, magic = encode_edge_inputs(case, pb, dev)
+            rows = [x32]
+            if case == "ragged":
+                flat = torch.zeros(x32.numel() + 1, dtype=torch.int32, device=dev)
+                rows.append(flat[1:].view(x32.shape))
+                rows[1].copy_(x32)
+            for x in rows:
+                for fn, plain in ((encode_rows, encode_rows_plain),
+                                  (encode_blocks, encode_blocks_plain)):
+                    got = fn(x, sizes, packed, magic, pb)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(got, plain(x, sizes, packed, magic, pb))
+                    check(err == 0, f"{fn.__name__} on the {case} edge at prob_bits "
+                                     f"{pb} (rows at {x.data_ptr() % 16} mod 16 B) "
+                                     f"differs from its plain version by {err}")
+            nw = got[2]
+            if case == "overflow" and pb == 11:
+                first, last = int(nw[0, 0]), int(nw[1, EDGE_NB - 1])
+                check(min(first, last) > 2560 and int(nw[0, :4].sum()) < 10240,
+                      f"overflow edge: blocks of {first} and {last} u16 pass "
+                      "the classic cap under the row cap")
+                print(f"K2 overflow edge: the all-values block emits {first} / "
+                      f"{last} u16 (classic cap 2560), its row "
+                      f"{int(nw[0, :4].sum())} (row cap 10240)")
+            if case == "single":
+                check(not bool(nw.any()), "a single-symbol member emits nothing")
+        print(f"K2 edges at prob_bits {pb}: {', '.join(EDGE_CASES)}, row and "
+              "classic layouts, equal to plain")
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    for r, k, aligned in EDGE_LOOKUPS:
+        tabs = torch.randint(-(1 << 31), (1 << 31) - 1, (r, EDGE_H), generator=g,
+                             device=dev, dtype=torch.int32)
+        idx = torch.randint(-50, EDGE_H + 50, (r, k), generator=g, device=dev,
+                            dtype=torch.int32)
+        if not aligned:
+            flat = torch.zeros(r * k + 1, dtype=torch.int32, device=dev)
+            flat[1:].view(r, k).copy_(idx)
+            idx = flat[1:].view(r, k)
+        got = rowwise_lookup(tabs, idx)
+        torch.cuda.synchronize()
+        check(torch.equal(got, rowwise_lookup_plain(tabs, idx)),
+              f"rowwise_lookup [{r}, {k}] (idx at {idx.data_ptr() % 16} mod 16 B) "
+              "equals its plain version")
+    print(f"K14 rowwise edges {EDGE_LOOKUPS} (rows, k, aligned), tables of "
+          f"{EDGE_H} words, indices past both ends: equal to plain")
+
+
 def phase_misaligned(dev):
     """The in-place decode at archive offsets that are not 16 B aligned:
     the golden bf16 and fp32 inputs' archives shifted by 1-3 words in
@@ -1052,12 +1187,14 @@ def _kernel_name(name: str) -> str:
 
 def profile_paths(paths, ops, card: str) -> None:
     """``--profile``: for each main path's compress and decompress (a
-    decode formulation's decompress alone; phase O's run), the host-clock
-    median of 10 calls ending in a synchronise, and from a torch.profiler
-    trace of 5 calls after 3 warm-ups the device busy time (kernels, copies
-    and fills), the idle share (1 - busy / host), the host's kernel
-    launches, the device's operations and the eight device operations
-    that take the most time, each per call."""
+    decode formulation's decompress alone; phase O's run, each of its
+    lookups alone and their library calls), the host-clock median of 10
+    calls ending in a synchronise, and from a torch.profiler trace of 5
+    calls after 3 warm-ups the device busy time (kernels, copies and
+    fills), the idle share (1 - busy / host), the host's kernel launches,
+    the device's operations, the eight device operations that take the
+    most time and the device time of every kernel of ``csrc/``, each per
+    call; then ``wrapper_breakdown``."""
     from torch.profiler import ProfilerActivity, profile
 
     trace = K.BUILD_DIR / f"profile.{os.getpid()}.json"
@@ -1066,8 +1203,9 @@ def profile_paths(paths, ops, card: str) -> None:
           "share, host launches, device ops")
     for mp in paths + [ops]:
         if mp is ops:
-            # the lookups' library calls too, device time against device time
-            runs = (("run", ops.run),) + ops.gathers
+            # each lookup alone and its library call too, device time
+            # against device time
+            runs = (("run", ops.run),) + ops.lookups
         else:
             arc = mp.compress()[0]
             runs = (("compress", mp.compress),
@@ -1102,13 +1240,67 @@ def profile_paths(paths, ops, card: str) -> None:
                   f"{busy:.3f} ms, idle share {1 - busy / h_ms:.3f}, host "
                   f"launches {len(launches) / 5:.0f}, device ops "
                   f"{len(dev) / 5:.0f}")
-            by_name = {}
+            by_name, ours = {}, set()
             for e in dev:
                 name = _kernel_name(e["name"])
                 by_name[name] = by_name.get(name, 0.0) + e["dur"]
+                if name != e["name"]:
+                    ours.add(name)
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
             print("  top: " + "; ".join(f"{name[:70]} {us / 5 / 1e3:.3f} ms"
                                         for name, us in top))
+            print("  csrc: " + "; ".join(
+                f"{name} {by_name[name] / 5 / 1e3:.4f} ms" for name in sorted(ours)))
+    wrapper_breakdown(ops, card)
+
+
+def wrapper_breakdown(ops, card: str, reps: int = 500) -> None:
+    """``--profile``: the host time of K14 rowwise's wrapper at phase O's
+    shapes, piece by piece (host clock, mean of reps calls after a
+    synchronise; the launches queue on the device, which runs each in a
+    few microseconds): the op's argument checks, the dispatch test, the
+    wrapper's device test, the output's allocation, ``library()``, entering
+    and leaving ``torch.cuda.device``, ``_stream``, the ctypes call that
+    launches, and the whole ``rowwise_lookup`` call."""
+    from dietgpu_fork_torch.core.config import use_kernels
+
+    tabs, idx = ops.tabs, ops.tab_idx
+    (r, h), k = tabs.shape, idx.shape[1]
+    dev = idx.device
+    lib = K.library()
+    out = torch.empty((r, k), dtype=torch.int32, device=dev)
+    stream = K._stream(idx)
+
+    def enter_device():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = (
+        ("op checks", lambda: _check_lookup_args(tabs, idx, ROWWISE_MAX_K)),
+        ("use_kernels", lambda: use_kernels(idx)),
+        ("_cuda_only", lambda: K._cuda_only(tabs, idx)),
+        ("torch.empty", lambda: torch.empty((r, k), dtype=torch.int32, device=dev)),
+        ("library()", K.library),
+        ("torch.cuda.device", enter_device),
+        ("_stream", lambda: K._stream(idx)),
+        ("ctypes call", lambda: lib.dgt_rowwise_lookup(
+            tabs.data_ptr(), r, h, idx.data_ptr(), k, out.data_ptr(), stream)),
+        ("rowwise_lookup", lambda: rowwise_lookup(tabs, idx)),
+    )
+    us = {}
+    for name, fn in pieces:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    parts = sum(v for name, v in us.items() if name != "rowwise_lookup")
+    print(f"wrapper rowwise_lookup host us ({card}): " + "; ".join(
+        f"{name} {v:.2f}" for name, v in us.items())
+        + f"; sum of the pieces {parts:.2f}")
 
 
 def hold_kernels(name: str, calls, report) -> None:
@@ -1204,6 +1396,8 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_paths(paths, ops, card)
         return 0
+    print(f"K2 CTAs an SM: row layout {K.encode_ctas_per_sm(False)}, classic "
+          f"{K.encode_ctas_per_sm(True)}")
 
     # 2. every kernel and mode against its plain version at each main
     # path's shapes
@@ -1313,6 +1507,7 @@ def main() -> int:
     # 5. ragged batches: per-member tables inside K2, K4 and K6, partial
     # groups of floats in K5 and K7; then D, E and F
     phase_k3_ragged(dev)
+    phase_encode_edges(dev)
     phase_misaligned(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)

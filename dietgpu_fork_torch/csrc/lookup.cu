@@ -8,17 +8,20 @@
 // kSharedWords, 48 KiB: the decoder's LUT is at most 4096 words) and
 // gathers from there; a larger table is read through global memory by the
 // same kernel. Indices go 4 a thread with 16 B loads and stores where the
-// rows are 16 B aligned, else one a thread.
+// rows are 16 B aligned, else one a thread. Bound on the card: device
+// memory, the indices read and the values written once.
 //
 // dgt_rowwise_lookup replaces ::_rowwise_kernel (entry rowwise_lookup): a
 // private table per row and at most 128 indices a row. Contract:
-// ops/lookup.py::rowwise_lookup_plain. One warp per row, 8 rows per CTA;
-// the gathers read through global memory (a row's table is larger than its
-// indices need).
-//
-// Bound on the card: device memory, the indices read and the values
-// written once (chunked); the rowwise gathers touch one 32 B sector per
-// distinct index.
+// ops/lookup.py::rowwise_lookup_plain. Bound on the card: latency, not
+// bytes: each value is an index load followed by a table load that depends
+// on it (one 32 B sector per distinct index), and a call at the walk's
+// shapes (1024 rows of 128) moves under 2 MB. So every thread issues its
+// index load, then its table loads, which are independent of each other,
+// then one store: 4 indices a thread with a 16 B index load and a 16 B
+// store where the rows allow it (k % 4 == 0, 16 B aligned), else one; and
+// the grid spreads the indices flat over CTAs of 128 threads, 256 CTAs for
+// 1024 x 128, so every SM takes part.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,7 +31,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGridX = 1024;
 constexpr int kSharedWords = 12288;
-constexpr int kRowsPerCta = kThreads / 32;
+constexpr int kRowThreads = 128;
 
 __device__ __forceinline__ uint32_t at(const uint32_t* t, int64_t h, int i) {
   const int64_t c = i < 0 ? 0 : (i >= h ? h - 1 : i);
@@ -65,15 +68,24 @@ chunked_lookup_kernel(const uint32_t* __restrict__ tables, int64_t h,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-rowwise_lookup_kernel(const uint32_t* __restrict__ tables, int64_t r, int64_t h,
-                      const int32_t* __restrict__ idx, int64_t k,
+// n = r * k indices, flat; kVec: 4 a thread (k % 4 == 0, idx and out 16 B
+// aligned), so a thread's 4 indices lie in one row.
+template <bool kVec>
+__global__ void __launch_bounds__(kRowThreads)
+rowwise_lookup_kernel(const uint32_t* __restrict__ tables, int64_t h,
+                      const int32_t* __restrict__ idx, int64_t k, int64_t n,
                       uint32_t* __restrict__ out) {
-  const int64_t row = (int64_t)blockIdx.x * kRowsPerCta + threadIdx.x / 32;
-  if (row >= r) return;
-  const uint32_t* tab = tables + row * h;
-  for (int64_t j = threadIdx.x % 32; j < k; j += 32) {
-    out[row * k + j] = at(tab, h, idx[row * k + j]);
+  const int64_t j = (int64_t)blockIdx.x * kRowThreads + threadIdx.x;
+  if constexpr (kVec) {
+    if (4 * j >= n) return;
+    const int4 i4 = __ldg(reinterpret_cast<const int4*>(idx) + j);
+    const uint32_t* tab = tables + (4 * j / k) * h;
+    // four independent loads, then one store
+    reinterpret_cast<uint4*>(out)[j] = make_uint4(
+        at(tab, h, i4.x), at(tab, h, i4.y), at(tab, h, i4.z), at(tab, h, i4.w));
+  } else {
+    if (j >= n) return;
+    out[j] = at(tables + (j / k) * h, h, __ldg(idx + j));
   }
 }
 
@@ -108,8 +120,18 @@ extern "C" int dgt_chunked_lookup(const void* tables, long long batch,
 extern "C" int dgt_rowwise_lookup(const void* tables, long long r, long long h,
                                   const void* idx, long long k, void* out,
                                   void* stream) {
-  const long long gx = (r + kRowsPerCta - 1) / kRowsPerCta;
-  rowwise_lookup_kernel<<<(unsigned)gx, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)tables, r, h, (const int32_t*)idx, k, (uint32_t*)out);
+  const long long n = r * k;
+  const bool vec = k % 4 == 0 && (uintptr_t)idx % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  const long long work = vec ? n / 4 : n;
+  const unsigned gx = (unsigned)((work + kRowThreads - 1) / kRowThreads);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    rowwise_lookup_kernel<true><<<gx, kRowThreads, 0, s>>>(
+        (const uint32_t*)tables, h, (const int32_t*)idx, k, n, (uint32_t*)out);
+  } else {
+    rowwise_lookup_kernel<false><<<gx, kRowThreads, 0, s>>>(
+        (const uint32_t*)tables, h, (const int32_t*)idx, k, n, (uint32_t*)out);
+  }
   return (int)cudaGetLastError();
 }

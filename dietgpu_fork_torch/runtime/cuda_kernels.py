@@ -171,6 +171,7 @@ def library() -> ctypes.CDLL:
         "dgt_split_wide": [P, L, L, I, P, P, P, P],
         "dgt_chunked_lookup": [P, L, L, P, L, P, P],
         "dgt_rowwise_lookup": [P, L, L, P, L, P, P],
+        "dgt_rans_encode_ctas_per_sm": [I],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -260,6 +261,15 @@ def encode_blocks(x32, sizes, packed, magic, prob_bits: int):
     ``ops.rans_encode.encode_blocks``."""
     return _encode("dgt_rans_encode_blocks", "rans_encode_blocks", x32, sizes,
                    packed, magic, prob_bits, classic=True)
+
+
+def encode_ctas_per_sm(classic: bool) -> int:
+    """K2's CTAs resident on one SM of the current device, in the classic
+    or the row layout (the CUDA occupancy calculator)."""
+    n = library().dgt_rans_encode_ctas_per_sm(int(classic))
+    if n < 0:
+        _check(library(), -n, "rans_encode occupancy")
+    return n
 
 
 MAX_MERGE_SOURCES = 8  # K3 takes its sources by value
