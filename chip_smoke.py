@@ -4,7 +4,7 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the fourteen CUDA kernels (K1-K14, eleven sources)
+   versions, and builds the fifteen CUDA kernels (K1-K15, twelve sources)
    from ``dietgpu_fork_torch/csrc`` (nvcc, sm_90a, one process per
    source), printing the build time, ptxas's register, shared-memory and
    spill report, and K2's CTAs an SM;
@@ -54,8 +54,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    with dead blocks in the last row, rows only 4 B aligned, uniform bytes,
    single-symbol members, a block past the classic cap under the row cap;
    rowwise rows not a multiple of 8, 1, 5 and 128 indices a row, indices
-   past both ends), and the in-place decode at archive offsets that are
-   not 16 B aligned (``phase_misaligned``); checks that a core round
+   past both ends), K15, K10 and K11 to theirs in bf16, fp32 and fp64 on
+   ragged sparse batches (``phase_sparse_edges``: members around the tiles,
+   one across 3 of K15's tiles, nnz 0, nnz = n and n = 0, counts ending
+   mid-byte and mid-word, rows off 16 B boundaries, a 16-bit run starting
+   at an odd slot, ranks past K11's nonzero row), and the in-place decode
+   at archive offsets that are not 16 B aligned (``phase_misaligned``); checks that a core round
    trip makes at most ``K3_MAX_LAUNCHES`` K3 launches (phase 3);
    round-trips a ragged bf16 batch of 128 members and ragged fp32 and
    fp64 batches of 64 members, each of up to 128Ki floats; then D, the
@@ -71,8 +75,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    decode formulation in turns with the default one on the same archive.
 
 ``python3 chip_smoke.py --profile`` instead profiles each main path's
-compress and decompress, each decode formulation's decompress, phase O's
-run, each of its lookups alone and their library calls
+compress and decompress, each decode formulation's decompress, each S
+path's rank scan alone (K15, and the plain version, which is how the
+scan ran before K15), phase O's run, each of its lookups alone and their
+library calls
 (``profile_paths``: the top device ops and every ``csrc`` kernel's device
 time), then times the host work of K14 rowwise's wrapper piece by piece
 (``wrapper_breakdown``), and prints no result.
@@ -147,8 +153,12 @@ from dietgpu_fork_torch.ops.rans_encode import (
 )
 from dietgpu_fork_torch.ops.sparse_stream import (
     _unpack_bits,
+    compact_by_bitmap,
     compact_by_bitmap_plain,
+    expand_by_bitmap,
     expand_by_bitmap_plain,
+    word_ranks,
+    word_ranks_plain,
 )
 from dietgpu_fork_torch.ops.table import normalize_probs_batched, pack_encode_table
 from dietgpu_fork_torch.runtime import cuda_kernels as K
@@ -224,6 +234,19 @@ EDGE_PROB_BITS = (9, 11)
 EDGE_LOOKUPS = ((1027, 1, True), (1027, 5, True), (1027, 128, True),
                 (13, 128, False))
 EDGE_H = 37
+# K15, K10 and K11 edges (``sparse_edge_inputs``): members around the tiles
+# of K10 and K11 (16 KiB of floats: 8192 16-bit, 4096 fp32, 2048 fp64) and
+# of K15 (4096 bitmap words, 131072 floats), as (floats, share of zeros).
+# Counts end mid-byte (1, 8191, 8193, 3 x 8192 + 17, 300,005) and on a
+# byte inside a word (8200, 5000); 300,005 floats span 3 of K15's tiles;
+# then nnz = n, nnz = 0 and n = 0. tests/test_torch_sparse_edges.py holds
+# the plain versions to a NumPy oracle and to the JAX package's
+# compact_by_bitmap / expand_by_bitmap on the same inputs.
+SPARSE_EDGE_CASES = ("ragged", "overread", "aligned")
+SPARSE_EDGE_MEMBERS = ((1, 0.5), (8191, 0.5), (8193, 0.5), (3 * 8192 + 17, 0.5),
+                       (300_005, 0.5), (8200, 0.0), (5000, 1.0), (0, 0.5))
+SPARSE_EDGE_ALIGNED = ((16384, 0.9), (8192, 0.5), (16, 0.5), (16383, 0.9))
+SPARSE_EDGE_NZ_WORDS = 600  # overread: K11's nonzero rows, short of the nnz
 
 # the plain version of the six decode wrappers (K4, K6, K12), which take
 # decode_at's arguments in its order
@@ -314,6 +337,12 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/lookup.cu", ("ops/pallas/lookup.py:38",), (P_O,)),
     ("rowwise_lookup", "rowwise_lookup", rowwise_lookup_plain,
      "dietgpu_fork_torch/csrc/lookup.cu", ("ops/pallas/lookup.py:60",), (P_O,)),
+    # K15: the rank scan the JAX package runs in XLA inside compact_by_bitmap
+    # and expand_by_bitmap (popcounts and jnp.cumsum), not a Pallas kernel
+    ("word_ranks", "word_ranks", word_ranks_plain,
+     "dietgpu_fork_torch/csrc/word_ranks.cu",
+     ("ops/pallas/sparse_stream.py:280", "ops/pallas/sparse_stream.py:430"),
+     P_S),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 WARP = 32  # rANS states a block
@@ -333,6 +362,12 @@ def _ws(ft) -> int:
 
 def _nnz(ranks) -> int:
     return int(ranks[:, -1].sum())
+
+
+def _live_words(bm32, n) -> int:
+    """Bitmap words holding a float below n, over the rows: the words the
+    rank scan must read."""
+    return int(((n.to(torch.int64).clamp(0, 32 * bm32.shape[1]) + 31) // 32).sum())
 
 
 def _distinct(tables, idx) -> int:
@@ -372,6 +407,7 @@ _DATA_INPUT = {
     "decode_join32": (0, _decode_need),
     "decode_join32_blocks": (0, _decode_need),
     "rowwise_lookup": (0, lambda a: 4 * _distinct(*a)),
+    "word_ranks": (0, lambda a: 4 * _live_words(*a)),
 }
 
 
@@ -1144,6 +1180,79 @@ def phase_encode_edges(dev):
           f"{EDGE_H} words, indices past both ends: equal to plain")
 
 
+def sparse_edge_inputs(case: str, ft, dev):
+    """One of SPARSE_EDGE_CASES in float type ft on dev: (data32 int32[B,
+    W32] rows, n int64[B], bm32 their bitmap (``pack_bitmap_plain``), nz32
+    K11's nonzero rows, out_floats).
+    - ragged: SPARSE_EDGE_MEMBERS in rows of the largest member's floats,
+      so rows 1 on start off 16 B boundaries; member 3 keeps an odd count
+      of its first 8192 floats, so in 16-bit floats the run of its second
+      tile starts at an odd slot; nz32 is K10's plain output and out_floats
+      the largest member;
+    - overread: the same, but nz32 holds SPARSE_EDGE_NZ_WORDS words, so
+      most members' ranks run past its floats, and out_floats is 3 below
+      the largest member, which so passes it;
+    - aligned: SPARSE_EDGE_ALIGNED in rows of 16384 floats, 16 B aligned."""
+    aligned = case == "aligned"
+    members = SPARSE_EDGE_ALIGNED if aligned else SPARSE_EDGE_MEMBERS
+    rng = np.random.default_rng(60 + int(aligned))
+    ws = []
+    for i, (count, zeros) in enumerate(members):
+        w = float_words(70 + i, count, ft)
+        w[rng.random(count) < zeros] = 0
+        ws.append(w)
+    if not aligned and np.count_nonzero(ws[3][:8192]) % 2 == 0:
+        ws[3][0] = 0 if ws[3][0] else 1
+    cap = max(count for count, _ in members)
+    data32 = rows_from_numpy(pack_rows(ws, cap), dev)
+    n = torch.tensor([count for count, _ in members], dtype=torch.int64, device=dev)
+    bm32 = pack_bitmap_plain(data32, n, ft)
+    nz32 = compact_by_bitmap_plain(data32, bm32, word_ranks_plain(bm32, n), ft)[0]
+    if case == "overread":
+        return data32, n, bm32, nz32[:, :SPARSE_EDGE_NZ_WORDS].contiguous(), cap - 3
+    return data32, n, bm32, nz32, cap
+
+
+def phase_sparse_edges(dev):
+    """K15, K10 and K11 against their plain versions, bit for bit, on
+    SPARSE_EDGE_CASES in bf16, fp32 and fp64, each kernel launched once a
+    case; checks that the edges are there (an odd run start in bf16, ranks
+    past the nonzero row)."""
+    for case in SPARSE_EDGE_CASES:
+        for ft in (BF16, FP32, FP64):
+            data32, n, bm32, nz32, out_floats = sparse_edge_inputs(case, ft, dev)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            ranks = word_ranks(bm32, n)
+            packed = compact_by_bitmap(data32, bm32, ranks, ft)
+            out = expand_by_bitmap(nz32, bm32, ranks, n, out_floats, ft)
+            torch.cuda.synchronize()
+            ran = {c: K.launches[c] for c in ("word_ranks", "sparse_compact",
+                                              "sparse_expand")}
+            check(all(v == 1 for v in ran.values()),
+                  f"sparse edge {case} {ft.name}: launches {ran}")
+            p_ranks = word_ranks_plain(bm32, n)
+            for name, got, want in (
+                    ("word_ranks", ranks, p_ranks),
+                    ("compact_by_bitmap", packed,
+                     compact_by_bitmap_plain(data32, bm32, p_ranks, ft)),
+                    ("expand_by_bitmap", out, expand_by_bitmap_plain(
+                        nz32, bm32, p_ranks, n, out_floats, ft))):
+                err = max_abs_err(got, want)
+                check(err == 0, f"{name} on the {case} edge in {ft.name} "
+                                f"differs from its plain version by {err}")
+            nz_cap = 4 * nz32.shape[1] // _ws(ft)
+            if case == "overread":
+                check(int(ranks[:, -1].max()) > nz_cap,
+                      "overread edge: ranks past the nonzero row")
+            if case == "ragged" and ft == BF16:
+                check(int(ranks[3, 256]) % 2 == 1,
+                      "ragged edge: a bf16 run starts at an odd slot")
+        print(f"sparse edges {case}: K15, K10, K11 in bf16, fp32, fp64 equal "
+              f"to plain (n {n.tolist()}, nnz {ranks[:, -1].tolist()}, "
+              f"out_floats {out_floats}, K11 rows of {nz_cap} fp64 floats)")
+
+
 def phase_misaligned(dev):
     """The in-place decode at archive offsets that are not 16 B aligned:
     the golden bf16 and fp32 inputs' archives shifted by 1-3 words in
@@ -1187,8 +1296,9 @@ def _kernel_name(name: str) -> str:
 
 def profile_paths(paths, ops, card: str) -> None:
     """``--profile``: for each main path's compress and decompress (a
-    decode formulation's decompress alone; phase O's run, each of its
-    lookups alone and their library calls), the host-clock median of 10
+    decode formulation's decompress alone; an S path's rank scan alone too,
+    K15 and the plain version; phase O's run, each of its lookups alone and
+    their library calls), the host-clock median of 10
     calls ending in a synchronise, and from a torch.profiler trace of 5
     calls after 3 warm-ups the device busy time (kernels, copies and
     fills), the idle share (1 - busy / host), the host's kernel launches,
@@ -1212,6 +1322,13 @@ def profile_paths(paths, ops, card: str) -> None:
                     ("decompress", lambda: mp.decompress(arc)))
             if getattr(mp, "decode_only", False):
                 runs = runs[1:]  # its compress is the set-up archive
+            if isinstance(mp, ApiSparsePath):
+                # the rank scan alone on the path's bitmap: K15, and the
+                # plain version, which is how the scan ran before K15
+                n64 = mp.n.to(torch.int64)
+                bm = pack_bitmap_plain(mp.d, n64, mp.ft)
+                runs += (("rank scan K15", lambda: word_ranks(bm, n64)),
+                         ("rank scan plain", lambda: word_ranks_plain(bm, n64)))
         for what, fn in runs:
             for _ in range(3):
                 fn()
@@ -1508,6 +1625,7 @@ def main() -> int:
     # groups of floats in K5 and K7; then D, E and F
     phase_k3_ragged(dev)
     phase_encode_edges(dev)
+    phase_sparse_edges(dev)
     phase_misaligned(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)

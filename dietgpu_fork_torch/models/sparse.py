@@ -5,14 +5,14 @@ A port of the JAX package's ``models/sparse.py`` (the reference's
 floatCompressSparseDevice / floatDecompressSparseDevice,
 GpuSparseFloatCompress.cuh:253-446, GpuSparseFloatDecompress.cuh:183-353):
 
-* compress: K9 packs each member's bitmap -> the rank scan (plain torch,
-  ``word_ranks``) -> K10 compacts the nonzero floats -> the dense
+* compress: K9 packs each member's bitmap -> K15 scans its ranks
+  (``word_ranks``) -> K10 compacts the nonzero floats -> the dense
   ``float_compress_core`` on (packed, nnz) -> one K3 merge assembles each
   member's archive;
 * decompress: sanitise the header's float count -> one K3 merge stages the
   bitmaps -> the dense ``float_decompress_core`` at each member's word
-  offset ``4 + bitmap_words(n)`` -> the rank scan -> K11 expands the
-  nonzero floats and zeroes the rest.
+  offset ``4 + bitmap_words(n)`` -> K15 scans the ranks -> K11 expands
+  the nonzero floats and zeroes the rest.
 
 Archive layout per member (u32 words): the sparse header (4: the float
 count n, then zeros; no magic), the bitmap (``bitmap_words(n)``: MSB first
@@ -49,6 +49,7 @@ from ..ops.sparse_stream import (
     expand_by_bitmap,
     expand_by_bitmap_plain,
     word_ranks,
+    word_ranks_plain,
 )
 from .float_codec import _check_type, float_compress_core, float_decompress_core
 
@@ -81,7 +82,7 @@ def sparse_float_compress_core(
 
     pack = pack_bitmap_plain if plain else pack_bitmap
     bm32 = pack(data32, n64.to(torch.int32), ft)
-    ranks = word_ranks(bm32, n64)
+    ranks = (word_ranks_plain if plain else word_ranks)(bm32, n64)
     compact = compact_by_bitmap_plain if plain else compact_by_bitmap
     packed, nnz = compact(data32, bm32, ranks, ft)
     dense32, dense_bytes = float_compress_core(
@@ -156,7 +157,7 @@ def sparse_float_decompress_core(
 
     # a failed member expands nothing: it decodes to zeros
     n_ok = torch.where(success, n, 0)
-    ranks = word_ranks(bm32, n_ok)
+    ranks = (word_ranks_plain if plain else word_ranks)(bm32, n_ok)
     expand = expand_by_bitmap_plain if plain else expand_by_bitmap
     words32 = expand(nz32, bm32, ranks, n_ok, out_floats, ft)
     return words32, success, n, csum_arch, csum_got

@@ -1,5 +1,5 @@
-"""Compaction and expansion of float rows by their nonzero bitmap: kernels
-K10 and K11 and their plain versions, and the rank scan between them.
+"""Compaction and expansion of float rows by their nonzero bitmap, and the
+rank scan both read: kernels K10, K11 and K15 and their plain versions.
 
 A port of the JAX package's ``ops/pallas/sparse_stream.py``:
 
@@ -11,9 +11,10 @@ archive's MSB-first words (``ops/bitmap_pack.py``), read as they are: the
 JAX package's ``bitrev8_words`` pass has no counterpart. The rank of a
 float is ``ranks[w] + (set bits of word w below it)`` with
 ``ranks = word_ranks(bm32, n)``: the exclusive scan of the per-word
-popcounts, computed outside the kernels as the JAX package computes it
-(``sparse_stream.py:280-283``, ``:430-432``), with one column more that
-holds the total.
+popcounts, which the JAX package computes in XLA inside its compaction and
+expansion (``sparse_stream.py:280-283``, ``:430-432``), with one column
+more that holds the total. Compaction and expansion take ranks that are
+their bitmap's ``word_ranks``.
 
 Rows: a 16-bit float is a u16 item, two per u32 word, item 2j in the low
 half of word j; an fp32 float one word; an fp64 float a (lo, hi) word
@@ -23,8 +24,9 @@ and zero past the nonzeros; ``expand_by_bitmap`` writes zero at every
 float at or past n[b] (the JAX package's ``mask_packed_bytes`` after the
 expansion).
 
-Both send CUDA tensors to their kernels (``csrc/sparse_compact.cu``,
-``csrc/sparse_expand.cu``) and CPU tensors to the plain versions.
+All three send CUDA tensors to their kernels (``csrc/word_ranks.cu``,
+``csrc/sparse_compact.cu``, ``csrc/sparse_expand.cu``) and CPU tensors to
+the plain versions.
 """
 
 from __future__ import annotations
@@ -41,10 +43,25 @@ from .bitmap_pack import bits_below, float_items, floats_capacity, items_to_word
 from .bitops import popcount32, to_u32
 
 
+def _check_ranks_args(bm32, n):
+    _check_rows("bm32", bm32)
+    if n.dim() != 1 or n.shape[0] != bm32.shape[0] or n.device != bm32.device:
+        raise TypeError(f"n must have shape [{bm32.shape[0]}] on the bitmap's device")
+
+
 def word_ranks(bm32: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """bm32: int32[B, BW] MSB-first bitmap words; n: [B] float counts.
     Returns int32[B, BW + 1]: column w holds the set bits of floats < n[b]
     in words before w, so the last column is each member's nonzero count."""
+    _check_ranks_args(bm32, n)
+    if not use_kernels(bm32):
+        return word_ranks_plain(bm32, n)
+    return K.word_ranks(bm32.contiguous(), n.to(torch.int64).contiguous())
+
+
+def word_ranks_plain(bm32, n):
+    """Plain PyTorch version of K15; runs on any device."""
+    _check_ranks_args(bm32, n)
     pc = popcount32(to_u32(bm32) & bits_below(n, bm32.shape[1]))
     return F.pad(torch.cumsum(pc, dim=1, dtype=torch.int32), (1, 0))
 

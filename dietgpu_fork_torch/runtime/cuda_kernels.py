@@ -4,7 +4,8 @@ The sources in ``dietgpu_fork_torch/csrc/*.cu`` have a plain C interface.
 At first use each is compiled with ``nvcc`` for ``sm_90a`` (Hopper), one
 process per source, all started together; the objects are linked into one
 shared library under ``dietgpu_fork_torch/build/``, named by a hash of the
-sources and flags, and loaded with ctypes. Nothing is built or loaded when
+sources, the headers they share (``csrc/*.cuh``) and the flags, and loaded
+with ctypes. Nothing is built or loaded when
 this module is imported.
 
 Each wrapper takes CUDA tensors that the op modules (``ops/*.py``) have
@@ -51,6 +52,7 @@ SOURCES = (
     "sparse_compact.cu",
     "sparse_expand.cu",
     "lookup.cu",
+    "word_ranks.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -80,6 +82,7 @@ launches: Dict[str, int] = {
     "split_wide": 0,
     "chunked_lookup": 0,
     "rowwise_lookup": 0,
+    "word_ranks": 0,
 }
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
@@ -107,13 +110,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _build() -> Path:
-    srcs = [CSRC / s for s in SOURCES]
+def _library_path() -> Path:
+    """The library's path, named by a hash of the flags, the sources and
+    the headers they share."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in [CSRC / s for s in SOURCES] + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    out = BUILD_DIR / f"libdgt_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libdgt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> Path:
+    srcs = [CSRC / s for s in SOURCES]
+    out = _library_path()
     if out.exists():
         return out
     work = BUILD_DIR / f"{out.stem}.{os.getpid()}"
@@ -172,6 +181,7 @@ def library() -> ctypes.CDLL:
         "dgt_chunked_lookup": [P, L, L, P, L, P, P],
         "dgt_rowwise_lookup": [P, L, L, P, L, P, P],
         "dgt_rans_encode_ctas_per_sm": [I],
+        "dgt_word_ranks": [P, L, L, P, P, L, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -527,6 +537,35 @@ def pack_bitmap(data32: torch.Tensor, n: torch.Tensor, float_type):
                                   bw, ws, out.data_ptr(), _stream(data32))
     _check(lib, err, "bitmap_pack")
     launches["bitmap_pack"] += 1
+    return out
+
+
+RANK_TILE_WORDS = 4096  # bitmap words a CTA of K15 scans (csrc/word_ranks.cu)
+
+
+def word_ranks(bm32: torch.Tensor, n: torch.Tensor):
+    """K15 launch (two passes behind one C entry); arguments as
+    ``ops.sparse_stream.word_ranks``, with n int64."""
+    _cuda_only(bm32, n)
+    B = bm32.shape[0] if bm32.dim() == 2 else -1
+    _batch_ok(B)
+    BW = bm32.shape[1]
+    _rows_i32(bm32, (B, BW), "bm32")
+    if n.dtype != torch.int64 or tuple(n.shape) != (B,) or not n.is_contiguous():
+        raise ValueError(f"n must be contiguous int64 of shape ({B},)")
+    if 32 * BW >= 1 << 31:
+        raise ValueError(f"{BW} bitmap words: ranks past int32")
+    dev = bm32.device
+    tiles = B * max(1, -(-BW // RANK_TILE_WORDS))
+    tsum = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    out = torch.empty((B, BW + 1), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_word_ranks(bm32.data_ptr(), B, BW, n.data_ptr(),
+                                 tsum.data_ptr(), tiles, out.data_ptr(),
+                                 _stream(bm32))
+    _check(lib, err, "word_ranks")
+    launches["word_ranks"] += 1
     return out
 
 

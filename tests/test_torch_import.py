@@ -25,7 +25,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     p.relative_to(ROOT).as_posix()
     for p in (ROOT / "dietgpu_fork_torch").rglob("*")
-    if p.suffix in (".py", ".cu")
+    if p.suffix in (".py", ".cu", ".cuh")
 ) + ["chip_smoke.py"]
 
 
@@ -122,7 +122,7 @@ def test_size_functions_equal_jax(size):
      "encode_blocks", "decode_blocks", "decode_join16_blocks", "pack_bitmap",
      "compact_by_bitmap", "expand_by_bitmap", "decode_join32",
      "decode_join32_blocks", "join16_rows", "split16", "split_wide",
-     "chunked_lookup", "rowwise_lookup"],
+     "chunked_lookup", "rowwise_lookup", "word_ranks"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper never runs, builds or falls back on a CPU tensor."""
@@ -157,6 +157,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "split_wide": (t, T.FloatType.FLOAT64),
         "chunked_lookup": (t, t),
         "rowwise_lookup": (t, t[:, :128]),
+        "word_ranks": (t[:, :32], i64),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(K, wrapper)(*args)
@@ -164,23 +165,39 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
 
 
 def test_every_source_is_built_and_counted():
-    """Each kernel source is in the build (K8, the sparse K9-K11 and the
-    lookups K14 among them), and each layout of K2, K4, K6 and K12, and
-    each split or join mode, has its own launch counter."""
+    """Each kernel source is in the build (K8, the sparse K9-K11, the
+    lookups K14 and the rank scan K15 among them), and each layout of K2,
+    K4, K6 and K12, and each split or join mode, has its own launch
+    counter."""
     from dietgpu_fork_torch.runtime import cuda_kernels as K
 
     on_disk = sorted(p.name for p in K.CSRC.glob("*.cu"))
     assert sorted(K.SOURCES) == on_disk
     assert {"byte_hist.cu", "bitmap_pack.cu", "sparse_compact.cu",
-            "sparse_expand.cu", "lookup.cu"} <= set(K.SOURCES)
+            "sparse_expand.cu", "lookup.cu", "word_ranks.cu"} <= set(K.SOURCES)
     assert {"byte_hist", "rans_encode_blocks", "rans_decode_blocks",
             "rans_decode_join16_blocks", "bitmap_pack", "sparse_compact",
             "sparse_expand", "rans_decode_join32", "rans_decode_join32_blocks",
             "join16", "split16", "split_wide", "chunked_lookup",
-            "rowwise_lookup"} <= set(K.launches)
+            "rowwise_lookup", "word_ranks"} <= set(K.launches)
     K.launches["byte_hist"] = 3
     K.reset_launches()
     assert not any(K.launches.values())
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A change to a header the sources include (``csrc/*.cuh``) names a
+    new library, so the kernels are built anew."""
+    from dietgpu_fork_torch.runtime import cuda_kernels as K
+
+    for p in K.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(K, "CSRC", tmp_path)
+    before = K._library_path()
+    assert list(tmp_path.glob("*.cuh"))
+    header = sorted(tmp_path.glob("*.cuh"))[0]
+    header.write_text(header.read_text() + "\n")
+    assert K._library_path() != before
 
 
 def test_interop_is_bit_exact():
