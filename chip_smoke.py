@@ -13,7 +13,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    version on the recorded inputs (the main path's own shapes), bit for
    bit, and times both with CUDA events, beside the kernel's bound (the
    bytes its calls must move at 3.35 TB/s; for the in-place decode the
-   streams, live states and raw bytes it reads of the archive, not the
+   streams, live states and raw bytes it reads of the archive, and for
+   K7's archive mode the section and plane bytes below each count, not the
    whole archive tensor) and, where one PyTorch call
    computes the same function, that call's time;
 3. drives the main paths, each with the launch counters reset just before
@@ -40,8 +41,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      must launch neither K12 nor K13;
    - O, the ops with no TPU path (``OpsPhase``): ``split_packed`` (K1 and
      K5 without histogram) of each type's 16Mi input and the join back
-     (K13, K7), ``chunked_lookup`` and ``rowwise_lookup`` (K14) with
-     indices past both ends of the tables;
+     (K13, K7 in tensor mode), ``chunked_lookup`` and ``rowwise_lookup``
+     (K14) with indices past both ends of the tables;
 4. links the port to the JAX reference without JAX: the archive of a fixed
    v2-container input of each type must hash to its ``GOLDEN_V2_SHA256``
    entry, a classic bf16 and a classic raw-ANS archive to their
@@ -58,9 +59,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ragged sparse batches (``phase_sparse_edges``: members around the tiles,
    one across 3 of K15's tiles, nnz 0, nnz = n and n = 0, counts ending
    mid-byte and mid-word, rows off 16 B boundaries, a 16-bit run starting
-   at an odd slot, ranks past K11's nonzero row), and the in-place decode
-   at archive offsets that are not 16 B aligned (``phase_misaligned``); checks that a core round
-   trip makes at most ``K3_MAX_LAUNCHES`` K3 launches (phase 3);
+   at an odd slot, ranks past K11's nonzero row), the in-place decode at
+   archive offsets that are not 16 B aligned (``phase_misaligned``: bf16
+   and fp32 fused and two-pass, fp64 two-pass, both layouts), and K5 (with
+   and without histograms) and K7 (archive and tensor modes) in fp32 and
+   fp64 (``phase_wide_edges``: counts around both kernels' tiles, 0,
+   inside a plane word and past the row, N(0,1) and one-bin fp64 data,
+   sections at every word phase and past the archive's end); checks that a
+   core round trip makes at most ``K3_MAX_LAUNCHES`` K3 launches (phase 3:
+   the compress merge, and the bf16 two-pass decode's raw staging);
    round-trips a ragged bf16 batch of 128 members and ragged fp32 and
    fp64 batches of 64 members, each of up to 128Ki floats; then D, the
    reference's large batch, 128 x 512Ki bf16 through the API; E, the
@@ -127,10 +134,14 @@ from dietgpu_fork_torch.ops.float_split import (
     join16_rows,
     join16_rows_plain,
     join_wide,
+    join_wide_at,
+    join_wide_at_plain,
     join_wide_plain,
     split16_hist_plain,
     split16_plain,
     split_packed,
+    split_wide,
+    split_wide_hist,
     split_wide_hist_plain,
     split_wide_plain,
 )
@@ -252,9 +263,19 @@ SPARSE_EDGE_NZ_WORDS = 600  # overread: K11's nonzero rows, short of the nnz
 # decode_at's arguments in its order
 _AT_ROWS = functools.partial(decode_at_plain, rows=True)
 _AT_BLOCKS = functools.partial(decode_at_plain, rows=False)
-# K3 launches a round trip may make on the core paths: the compress merge,
-# and on the two-pass decode one merge staging the raw sections
-K3_MAX_LAUNCHES = {P_BF16: 2, P_FP32: 3, P_FP64: 4}
+# K3 launches a round trip may make on the core paths: the compress merge;
+# the fp32 and fp64 two-pass decode reads its raw sections in place (K7's
+# archive mode), and only a 16-bit two-pass decode stages its raw section
+K3_MAX_LAUNCHES = {P_BF16: 2, P_FP32: 1, P_FP64: 1}
+# K5 and K7 edges (``wide_edge_inputs``): counts around the tiles of K5
+# (8192 fp32 / 4096 fp64 floats) and K7 (4096 / 2048) and inside a plane
+# word, one past the row's floats; rows of WIDE_EDGE_CAP floats, so plane
+# rows of 5001 words start off 16 B boundaries.
+# tests/test_torch_join_inplace.py holds the plain versions to the JAX
+# package on the same inputs.
+WIDE_EDGE_CAP = 20_004
+WIDE_EDGE_COUNTS = (0, 1, 3, 5, 2047, 2049, 4095, 4096, 4097, 8191, 8193,
+                    WIDE_EDGE_CAP, WIDE_EDGE_CAP + 100)
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -285,11 +306,15 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",),
      (P_FP32, P_FP64, P_B, P_S32, P_S64, P_B16T)),
-    ("join_wide", "join_wide", join_wide_plain,
+    ("join_wide_at", "join_wide_at", join_wide_at_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
       "ops/pallas/float_split_fused.py:412"),
-     (P_FP32, P_FP64, P_C32, P_S32, P_S64, P_O)),
+     (P_FP32, P_FP64, P_C32, P_S32, P_S64)),
+    ("join_wide", "join_wide", join_wide_plain,
+     "dietgpu_fork_torch/csrc/join_wide.cu",
+     ("ops/pallas/float_split_fused.py:395",
+      "ops/pallas/float_split_fused.py:412"), (P_O,)),
     ("byte_hist", "byte_hist", byte_hist_plain,
      "dietgpu_fork_torch/csrc/byte_hist.cu",
      ("ops/pallas/histogram_mxu.py:113", "ops/pallas/histogram_mxu.py:93"),
@@ -388,9 +413,19 @@ def _decode_need(a) -> int:
             + 4 * WARP * int((uncomp_w > 0).sum()) + raw * int(uncomp_w.sum()))
 
 
-# the bytes of the one input whose use depends on the data, as (argument
-# index, the bytes that the call's data needs of it)
+def _join_at_need(a) -> int:
+    """The bytes K7's archive mode (join_wide_at's arguments) needs of the
+    archive and the planes: the section and plane bytes of the floats below
+    each count (3 + 1 B a float for fp32, 6 + 2 for fp64), not the whole
+    archive tensor."""
+    planes, count, ft = a[1], a[4], a[5]
+    return _ws(ft) * int(count.clamp(0, 4 * planes[0].shape[1]).sum())
+
+
+# the bytes of the inputs whose use depends on the data, as (argument
+# index or indices, the bytes that the call's data needs of them)
 _DATA_INPUT = {
+    "join_wide_at": ((0, 1), _join_at_need),
     "split16_hist": (0, lambda a: 2 * int(a[1].sum())),
     "encode_rows": (0, lambda a: int(a[1].sum())),
     "encode_blocks": (0, lambda a: int(a[1].sum())),
@@ -419,7 +454,7 @@ def bound_ms(wname: str, args, out) -> float:
     nbytes = _nbytes(args) + _nbytes(out)
     if wname in _DATA_INPUT:
         i, need = _DATA_INPUT[wname]
-        nbytes += need(args) - _nbytes(args[i])
+        nbytes += need(args) - sum(_nbytes(args[k]) for k in as_tuple(i))
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -1255,10 +1290,12 @@ def phase_sparse_edges(dev):
 
 def phase_misaligned(dev):
     """The in-place decode at archive offsets that are not 16 B aligned:
-    the golden bf16 and fp32 inputs' archives shifted by 1-3 words in
-    wider rows, decoded fused and two-pass in both layouts, equal to the
-    aligned decode and to the plain decode."""
-    for ft, fused in ((BF16, True), (FP32, True), (BF16, False)):
+    the golden inputs' archives shifted by 1-3 words in wider rows, decoded
+    in both layouts, bf16 fused and two-pass, fp32 fused and two-pass (K7's
+    archive mode), fp64 two-pass, equal to the aligned decode and to the
+    plain decode."""
+    for ft, fused in ((BF16, True), (FP32, True), (BF16, False), (FP32, False),
+                      (FP64, False)):
         rows = rows_from_numpy(golden_input(ft)[1], dev)
         n = torch.tensor([GOLDEN_N], dtype=torch.int32, device=dev)
         for native in (True, False):
@@ -1279,9 +1316,100 @@ def phase_misaligned(dev):
                           and bool(got[1][0]),
                           f"{ft.name} native={native} fused={fused} decode at "
                           f"word {shift} (plain={plain})")
-    print("misaligned decode: bf16 fused and two-pass, fp32 fused, both "
-          "layouts, archives at words 1-3, equal to the aligned decode and "
-          "to the plain decode")
+    print("misaligned decode: bf16 and fp32 fused and two-pass, fp64 "
+          "two-pass, both layouts, archives at words 1-3, equal to the "
+          "aligned decode and to the plain decode")
+
+
+def wide_edge_inputs(ft, one_bin: bool, dev):
+    """K5's and K7's edge inputs in fp32 or fp64 on dev: (data32 int32[B,
+    W32], rows of WIDE_EDGE_CAP floats, N(0,1) or, with one_bin, in [1, 2)
+    (fp64's plane-0 bytes in one bin), random bytes past each count; n
+    int32[B], the WIDE_EDGE_COUNTS clamped to the row; count int64[B], the
+    WIDE_EDGE_COUNTS themselves)."""
+    rng = np.random.default_rng(80 + 2 * int(ft) + int(one_bin))
+    B, cap = len(WIDE_EDGE_COUNTS), WIDE_EDGE_CAP
+    x = 1 + rng.random((B, cap)) if one_bin else rng.normal(0, 1, (B, cap))
+    words = x.astype(np.float32 if ft == FP32 else np.float64).view(
+        np.uint32 if ft == FP32 else np.uint64)
+    data32 = rows_from_numpy(pack_rows(list(words), cap), dev)
+    count = torch.tensor(WIDE_EDGE_COUNTS, dtype=torch.int64, device=dev)
+    return data32, count.clamp(max=cap).to(torch.int32), count
+
+
+def wide_edge_archive(sec1, sec2, dev):
+    """The sections of every member laid in one archive row: member b's
+    sec1 row at a word phase of b % 4 within 16 B, its sec2 row 1-3 words
+    after it, random words between; the archive ends inside the last
+    member's sec2. -> (comp32 int32[1, W], s1_off, s2_off int64[B])."""
+    B = sec1.shape[0]
+    rng = np.random.default_rng(90)
+    at, offs = 0, []
+    for b in range(B):
+        o1 = -(-at // 4) * 4 + b % 4
+        o2 = o1 + sec1.shape[1] + 1 + b % 3
+        offs.append((o1, o2))
+        at = o2 + sec2.shape[1] + 5
+    end = offs[-1][1] + sec2.shape[1] // 2
+    flat = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, end, dtype=np.int64)
+                            .astype(np.int32)).to(dev)
+    for b, (o1, o2) in enumerate(offs):
+        flat[o1: o1 + sec1.shape[1]] = sec1[b]
+        w = min(sec2.shape[1], end - o2)
+        flat[o2: o2 + w] = sec2[b, :w]
+    o = torch.tensor(offs, dtype=torch.int64, device=dev)
+    return flat.reshape(1, -1), o[:, 0].contiguous(), o[:, 1].contiguous()
+
+
+def phase_wide_edges(dev):
+    """K5 (with and without histograms) and K7 (archive and tensor modes)
+    against their plain versions, bit for bit, on ``wide_edge_inputs`` in
+    fp32 and fp64, N(0,1) and one-bin data, each launched once a case; the
+    archive mode reads sections at every word phase, past the counts'
+    tiles and, for the last member, past the archive's end."""
+    for ft in (FP32, FP64):
+        for one_bin in (False, True):
+            data32, n, count = wide_edge_inputs(ft, one_bin, dev)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            got_h = split_wide_hist(data32, n, ft)
+            got_s = split_wide(data32, ft)
+            exp, sec1, sec2 = got_h[:3]
+            B = data32.shape[0]
+            planes = list(exp.reshape(-1, B, exp.shape[1]))
+            comp32, s1_off, s2_off = wide_edge_archive(sec1, sec2, dev)
+            got_at = join_wide_at(comp32, planes, s1_off, s2_off, count, ft)
+            got_t = join_wide(planes, sec1, sec2, ft)
+            torch.cuda.synchronize()
+            ran = {c: K.launches[c] for c in ("split_wide_hist", "split_wide",
+                                              "join_wide_at", "join_wide")}
+            what = f"{ft.name} {'one-bin' if one_bin else 'N(0,1)'}"
+            check(all(v == 1 for v in ran.values()),
+                  f"wide edge {what}: launches {ran}")
+            for name, got, want in (
+                    ("split_wide_hist", got_h, split_wide_hist_plain(data32, n, ft)),
+                    ("split_wide", got_s, split_wide_plain(data32, ft)),
+                    ("join_wide_at", got_at, join_wide_at_plain(
+                        comp32, planes, s1_off, s2_off, count, ft)),
+                    ("join_wide", got_t, join_wide_plain(planes, sec1, sec2, ft))):
+                err = max_abs_err(got, want)
+                check(err == 0, f"{name} on the {what} edge differs from its "
+                                f"plain version by {err}")
+            # below each count the archive mode gives back the input (but the
+            # last member, whose sections the archive's end cuts)
+            keep = torch.arange(data32.shape[1], device=dev)[None] < (
+                _ws(ft) // 4 * n.to(torch.int64))[:, None]
+            check(torch.equal(torch.where(keep, data32, 0)[:-1],
+                              got_at[:-1, : data32.shape[1]]),
+                  f"wide edge {what}: archive-mode join returns the input")
+            if one_bin and ft == FP64:
+                h0 = got_h[3][:B]  # plane 0
+                check(bool(((h0 > 0).sum(dim=1) <= 1).all()) and int(h0.sum()) > 0,
+                      "one-bin edge: fp64 plane 0 in one bin")
+        print(f"wide edges {ft.name}: K5 with and without histograms, K7 "
+              f"archive and tensor modes, N(0,1) and one-bin, counts "
+              f"{list(WIDE_EDGE_COUNTS)} in rows of {WIDE_EDGE_CAP}: equal to "
+              "plain")
 
 
 def _kernel_name(name: str) -> str:
@@ -1627,6 +1755,7 @@ def main() -> int:
     phase_encode_edges(dev)
     phase_sparse_edges(dev)
     phase_misaligned(dev)
+    phase_wide_edges(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)
     ragged_batch(FP64, 64, 300, dev)

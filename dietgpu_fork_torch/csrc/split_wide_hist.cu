@@ -14,14 +14,15 @@
 // histograms, no checksum and no tail mask. Contract:
 // ops/float_split.py::split_wide_plain, the JAX package's split_packed.
 //
-// One thread per group of 4 floats (fp32: 4 input words, one 16 B load;
-// fp64: 8 words, two 16 B loads), grid-stride over each row:
+// A thread takes 16 B chunks of input (fp32: 4 floats; fp64: 2 floats, a
+// (lo, hi) word pair each), consecutive lanes consecutive chunks:
 //   fp32: r = rotl(x, 1); exponent plane word = the 4 top bytes; sec1 = the
 //         4 low halves (2 words); sec2 = the 4 third bytes (1 word);
 //   fp64: each float is a (lo, hi) word pair rotated left by 1 across the
-//         pair; exp0 = the 4 top bytes of v_hi, exp1 = the next bytes;
-//         sec1 = the 4 v_lo words (one 16 B store); sec2 = the 4 low halves
-//         of v_hi (2 words).
+//         pair; exp0 = the top bytes of v_hi, exp1 = the next bytes, each 4
+//         floats a word, so a lane pair joins its halves of the two plane
+//         words with one shuffle and the even lane stores them; sec1 = the
+//         v_lo words (8 B a lane); sec2 = the low halves of v_hi (1 word).
 // With kHist, raw-section bytes at or past the member's count are zeroed.
 // hist[p * B + b] counts plane p's bytes of floats < n; csum[b] = XOR of the
 // first n * ws input bytes (XOR of masked words, then a fold of the 4 byte
@@ -29,28 +30,39 @@
 // byte into csum[b]).
 //
 // Bound on the card: device memory (fp32: 4 B read and 4 B written per
-// float; fp64: 8 and 8). The histograms go to shared u32[256] per plane and
-// CTA with shared-memory atomics, then once per bin to global memory; the
-// checksum is a warp XOR shuffle and one global atomic per CTA. Exponent
-// bytes of real data sit in a few bins, so the shared atomics contend; per-
-// warp sub-histograms are the next step.
+// float; fp64: 8 and 8). Design: a CTA takes one tile of a row, kSplitUnits
+// 16 B chunks a thread; each thread issues all of its tile's loads before
+// its first store, indices inside a tile are 32-bit from one int64 base,
+// and a chunk's tail mask is taken once (a branch only the chunk that holds
+// the count takes). Exponent bytes of real data fall in a few bins (fp64's
+// plane 0, the exponent's top 8 bits, in 1-2), so one shared counter a bin
+// would take every lane's atomic on one address. Each plane instead has
+// lane-private sub-histograms laid out [bin][lane], 32 KiB (dynamic shared
+// memory): lane l only touches bank l, so a warp's 32 increments go in one
+// pass whatever the bytes are; at its end a CTA adds its counts (each bin's
+// 32 lanes) to global memory. A one-off sweep on an H100 chose 256 threads
+// and 8 chunks a thread; warp-aggregated counting (__match_any_sync, one
+// atomic a distinct bin a warp) was slower than the lane columns on fp64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxGridX = 1024;
+constexpr int kSplitThreads = 256;
+constexpr int kSplitUnits = 8;  // 16 B chunks a thread a tile
+constexpr int kTileChunks = kSplitThreads * kSplitUnits;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ uint32_t byte_mask(int64_t nbytes) {
-  if (nbytes >= 4) return 0xFFFFFFFFu;
-  if (nbytes <= 0) return 0u;
-  return (1u << (8 * nbytes)) - 1u;
+// The shared histogram words of a CTA: kPlanes * 256 bins of 32 lanes.
+template <int kPlanes>
+__host__ __device__ constexpr int hist_words() {
+  return kPlanes * 256 * 32;
 }
 
-__device__ __forceinline__ uint32_t word_if(uint32_t w, int64_t i, int64_t n) {
-  return i < n ? w : 0u;
+__device__ __forceinline__ uint32_t byte_mask(int nbytes) {
+  return nbytes >= 4 ? 0xFFFFFFFFu
+                     : (nbytes <= 0 ? 0u : (1u << (8 * nbytes)) - 1u);
 }
 
 __device__ __forceinline__ uint32_t pack4(uint32_t b0, uint32_t b1,
@@ -58,11 +70,42 @@ __device__ __forceinline__ uint32_t pack4(uint32_t b0, uint32_t b1,
   return b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
 }
 
-// kWide64: fp64 (two planes, 8 words per group); else fp32 (one plane).
-// kHist: the histograms, the checksum and the tail mask at n; else the
-// split alone (n, hist and csum unused).
+// One count of plane p's byte value bin, where live, in this lane's column.
+__device__ __forceinline__ void count_byte(uint32_t* sh, int p, uint32_t bin,
+                                           bool live) {
+  if (live) atomicAdd(&sh[(p * 256 + bin) * 32 + (threadIdx.x & 31)], 1u);
+}
+
+// The CTA's counts held in shared memory, added to global memory: the
+// checksum byte and each bin's 32 lanes. Every thread of the CTA calls it.
+template <int kPlanes>
+__device__ __forceinline__ void flush(const uint32_t* sh_hist, uint32_t* sh_xor,
+                                      uint32_t x, int64_t row, int64_t batch,
+                                      unsigned int* hist, unsigned int* csum) {
+  for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(kFull, x, o);
+  if ((threadIdx.x & 31) == 0) sh_xor[threadIdx.x >> 5] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t t = 0;
+    for (int w = 0; w < kSplitThreads / 32; ++w) t ^= sh_xor[w];
+    t ^= t >> 16;
+    t ^= t >> 8;
+    t &= 0xFFu;
+    if (t) atomicXor(&csum[row], t);
+  }
+  for (int i = threadIdx.x; i < kPlanes * 256; i += kSplitThreads) {
+    // bin i's 32 lanes, each thread starting at another bank
+    uint32_t v = 0;
+    for (int l = 0; l < 32; ++l) v += sh_hist[i * 32 + ((l + i) & 31)];
+    if (v) atomicAdd(&hist[((i / 256) * batch + row) * 256 + i % 256], v);
+  }
+}
+
+// kWide64: fp64 (two planes); else fp32 (one plane). kHist: the histograms,
+// the checksum and the tail mask at n; else the split alone (n, hist and
+// csum unused). CTA (x, y) takes tile x of row y.
 template <bool kWide64, bool kHist>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSplitThreads)
 split_wide_hist_kernel(const uint32_t* __restrict__ in, int64_t w32,
                        int64_t batch, const int32_t* __restrict__ n,
                        uint32_t* __restrict__ exp_out,
@@ -71,103 +114,125 @@ split_wide_hist_kernel(const uint32_t* __restrict__ in, int64_t w32,
                        unsigned int* __restrict__ hist,
                        unsigned int* __restrict__ csum) {
   constexpr int kPlanes = kWide64 ? 2 : 1;
-  constexpr int kGroupWords = kWide64 ? 8 : 4;
-  __shared__ unsigned int sh_hist[kPlanes][kHist ? 256 : 1];
-  __shared__ uint32_t sh_xor[kThreads / 32];
+  constexpr int kPer = kWide64 ? 2 : 4;  // floats a chunk
+  extern __shared__ __align__(16) uint32_t sh_hist[];
+  __shared__ uint32_t sh_xor[kSplitThreads / 32];
+  const int lane = threadIdx.x & 31;
+  if constexpr (kHist) {
+    for (int i = threadIdx.x; i < hist_words<kPlanes>() / 4; i += kSplitThreads) {
+      reinterpret_cast<uint4*>(sh_hist)[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+  }
+
+  const int64_t chunks = w32 / 4;  // 16 B chunks a row
+  const int64_t groups = w32 / (4 * kPlanes);  // exponent-plane words a row
   const int64_t b = blockIdx.y;
-  if constexpr (kHist) {
-    for (int i = threadIdx.x; i < kPlanes * 256; i += blockDim.x) {
-      sh_hist[i / 256][i % 256] = 0;
-    }
-    __syncthreads();
-  }
-
-  // without kHist every float counts as below n: no mask
-  const int64_t nf = kHist ? n[b] : (int64_t)1 << 40;
-  const int64_t groups = w32 / kGroupWords;  // exponent-plane words
-  const uint32_t* row = in + b * w32;
+  const int64_t t0 = (int64_t)blockIdx.x * kTileChunks;  // the tile's first chunk
+  const int64_t nf = kHist ? n[b] : 0;
   uint32_t x = 0;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < groups;
-       j += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t left = nf - 4 * j;  // floats of this group below n
-    uint32_t e0, e1 = 0;
-    if constexpr (!kWide64) {
-      const uint4 a = *reinterpret_cast<const uint4*>(row + 4 * j);
-      if constexpr (kHist) {
-        x ^= word_if(a.x, 0, left) ^ word_if(a.y, 1, left) ^
-             word_if(a.z, 2, left) ^ word_if(a.w, 3, left);
-      }
-      const uint32_t r0 = (a.x << 1) | (a.x >> 31);
-      const uint32_t r1 = (a.y << 1) | (a.y >> 31);
-      const uint32_t r2 = (a.z << 1) | (a.z >> 31);
-      const uint32_t r3 = (a.w << 1) | (a.w >> 31);
-      e0 = pack4(r0 >> 24, r1 >> 24, r2 >> 24, r3 >> 24);
-      const uint32_t t = pack4((r0 >> 16) & 0xFFu, (r1 >> 16) & 0xFFu,
-                               (r2 >> 16) & 0xFFu, (r3 >> 16) & 0xFFu);
-      uint2 s1;
-      s1.x = ((r0 & 0xFFFFu) | (r1 << 16)) & byte_mask(2 * left);
-      s1.y = ((r2 & 0xFFFFu) | (r3 << 16)) & byte_mask(2 * left - 4);
-      exp_out[b * groups + j] = e0;
-      *reinterpret_cast<uint2*>(sec1_out + b * (w32 / 2) + 2 * j) = s1;
-      sec2_out[b * groups + j] = t & byte_mask(left);
-    } else {
-      const uint4 a = *reinterpret_cast<const uint4*>(row + 8 * j);
-      const uint4 c = *reinterpret_cast<const uint4*>(row + 8 * j + 4);
-      const int64_t lw = 2 * left;  // input words of this group below 2n
-      if constexpr (kHist) {
-        x ^= word_if(a.x, 0, lw) ^ word_if(a.y, 1, lw) ^ word_if(a.z, 2, lw) ^
-             word_if(a.w, 3, lw) ^ word_if(c.x, 4, lw) ^ word_if(c.y, 5, lw) ^
-             word_if(c.z, 6, lw) ^ word_if(c.w, 7, lw);
-      }
-      const uint32_t lo[4] = {a.x, a.z, c.x, c.z};
-      const uint32_t hi[4] = {a.y, a.w, c.y, c.w};
-      uint32_t vh[4], vl[4];
+  // the tile's chunks in the row, and its floats below n (kHist)
+  const int tc = (int)(chunks - t0 < kTileChunks ? chunks - t0 : kTileChunks);
+  const int64_t nl = nf - t0 * kPer;
+  const int lim = nl <= 0 ? 0 : (nl >= kTileChunks * kPer ? kTileChunks * kPer : (int)nl);
+  const uint4* src = reinterpret_cast<const uint4*>(in + b * w32) + t0;
+  // the tile's first plane word, sec1 word and sec2 word
+  uint32_t* e_t = exp_out + b * groups + t0 / (kWide64 ? 2 : 1);
+  uint32_t* s1_t = sec1_out + b * (w32 / 2) + 2 * t0;
+  uint32_t* s2_t = sec2_out + b * (w32 / 4) + t0;
+  uint4 v[kSplitUnits];
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        vh[f] = (hi[f] << 1) | (lo[f] >> 31);
-        vl[f] = ((lo[f] << 1) | (hi[f] >> 31)) & byte_mask(4 * (left - f));
-      }
-      e0 = pack4(vh[0] >> 24, vh[1] >> 24, vh[2] >> 24, vh[3] >> 24);
-      e1 = pack4((vh[0] >> 16) & 0xFFu, (vh[1] >> 16) & 0xFFu,
-                 (vh[2] >> 16) & 0xFFu, (vh[3] >> 16) & 0xFFu);
-      uint2 s2;
-      s2.x = ((vh[0] & 0xFFFFu) | (vh[1] << 16)) & byte_mask(2 * left);
-      s2.y = ((vh[2] & 0xFFFFu) | (vh[3] << 16)) & byte_mask(2 * left - 4);
-      exp_out[b * groups + j] = e0;
-      exp_out[(batch + b) * groups + j] = e1;
-      *reinterpret_cast<uint4*>(sec1_out + b * (w32 / 2) + 4 * j) =
-          make_uint4(vl[0], vl[1], vl[2], vl[3]);
-      *reinterpret_cast<uint2*>(sec2_out + b * (w32 / 4) + 2 * j) = s2;
-    }
-    if constexpr (kHist) {
-      for (int k = 0; k < 4; ++k) {
-        if (k < left) {
-          atomicAdd(&sh_hist[0][(e0 >> (8 * k)) & 0xFFu], 1u);
-          if constexpr (kWide64) {
-            atomicAdd(&sh_hist[kPlanes - 1][(e1 >> (8 * k)) & 0xFFu], 1u);
-          }
+  for (int k = 0; k < kSplitUnits; ++k) {
+    const int c = k * kSplitThreads + threadIdx.x;
+    if (c < tc) v[k] = __ldg(src + c);
+  }
+#pragma unroll
+  for (int k = 0; k < kSplitUnits; ++k) {
+    const int c = k * kSplitThreads + threadIdx.x;  // the chunk in the tile
+    const bool live = c < tc;
+    // floats of the chunk below n
+    const int left = !live ? 0 : (kHist ? min(max(lim - c * kPer, 0), kPer) : kPer);
+    const uint4 a = live ? v[k] : make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (!kWide64) {
+      const uint32_t r[4] = {(a.x << 1) | (a.x >> 31), (a.y << 1) | (a.y >> 31),
+                             (a.z << 1) | (a.z >> 31), (a.w << 1) | (a.w >> 31)};
+      const uint32_t e = pack4(r[0] >> 24, r[1] >> 24, r[2] >> 24, r[3] >> 24);
+      uint32_t t = pack4((r[0] >> 16) & 0xFFu, (r[1] >> 16) & 0xFFu,
+                         (r[2] >> 16) & 0xFFu, (r[3] >> 16) & 0xFFu);
+      uint2 s1 = make_uint2((r[0] & 0xFFFFu) | (r[1] << 16),
+                            (r[2] & 0xFFFFu) | (r[3] << 16));
+      if constexpr (kHist) {
+        if (left == 4) {
+          x ^= a.x ^ a.y ^ a.z ^ a.w;
+        } else {  // the chunk that holds the count, or one past it
+          x ^= (a.x & -(uint32_t)(left > 0)) ^ (a.y & -(uint32_t)(left > 1)) ^
+               (a.z & -(uint32_t)(left > 2));
+          s1.x &= byte_mask(2 * left);
+          s1.y &= byte_mask(2 * left - 4);
+          t &= byte_mask(left);
         }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) count_byte(sh_hist, 0, r[f] >> 24, f < left);
+      }
+      if (live) {
+        e_t[c] = e;
+        *reinterpret_cast<uint2*>(s1_t + 2 * c) = s1;
+        s2_t[c] = t;
+      }
+    } else {
+      const uint32_t vh0 = (a.y << 1) | (a.x >> 31), vh1 = (a.w << 1) | (a.z >> 31);
+      uint32_t vl0 = (a.x << 1) | (a.y >> 31), vl1 = (a.z << 1) | (a.w >> 31);
+      uint32_t s2 = (vh0 & 0xFFFFu) | (vh1 << 16);
+      if constexpr (kHist) {
+        if (left == 2) {
+          x ^= a.x ^ a.y ^ a.z ^ a.w;
+        } else {
+          const uint32_t one = -(uint32_t)(left > 0);
+          x ^= (a.x ^ a.y) & one;
+          vl0 &= one;
+          vl1 = 0;
+          s2 &= one & 0xFFFFu;
+        }
+        count_byte(sh_hist, 0, vh0 >> 24, left > 0);
+        count_byte(sh_hist, 0, vh1 >> 24, left > 1);
+        count_byte(sh_hist, 1, (vh0 >> 16) & 0xFFu, left > 0);
+        count_byte(sh_hist, 1, (vh1 >> 16) & 0xFFu, left > 1);
+      }
+      // this lane's half of the two plane words (floats 2 (c & 1) and the
+      // next of the group), joined with the partner lane's
+      const uint32_t mine = (vh0 >> 24) | ((vh1 >> 24) << 8) |
+                            (((vh0 >> 16) & 0xFFu) << 16) |
+                            (((vh1 >> 16) & 0xFFu) << 24);
+      const uint32_t other = __shfl_xor_sync(kFull, mine, 1);
+      if (live) {
+        if ((lane & 1) == 0) {
+          e_t[c / 2] = (mine & 0xFFFFu) | (other << 16);
+          e_t[batch * groups + c / 2] = (mine >> 16) | (other & 0xFFFF0000u);
+        }
+        *reinterpret_cast<uint2*>(s1_t + 2 * c) = make_uint2(vl0, vl1);
+        s2_t[c] = s2;
       }
     }
   }
+  if constexpr (kHist) flush<kPlanes>(sh_hist, sh_xor, x, b, batch, hist, csum);
+}
 
-  if constexpr (kHist) {
-    for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(0xFFFFFFFFu, x, o);
-    if ((threadIdx.x & 31) == 0) sh_xor[threadIdx.x >> 5] = x;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      uint32_t t = 0;
-      for (int w = 0; w < kThreads / 32; ++w) t ^= sh_xor[w];
-      t ^= t >> 16;
-      t ^= t >> 8;
-      t &= 0xFFu;
-      if (t) atomicXor(&csum[b], t);
-    }
-    for (int i = threadIdx.x; i < kPlanes * 256; i += blockDim.x) {
-      const unsigned int v = sh_hist[i / 256][i % 256];
-      if (v) atomicAdd(&hist[((i / 256) * batch + b) * 256 + i % 256], v);
-    }
+// One CTA a tile. fp64's histograms take 64 KiB of dynamic shared memory,
+// past the 48 KiB a launch may take without asking.
+template <bool kWide64, bool kHist>
+int launch(const uint32_t* x, long long batch, long long w32, const int32_t* n,
+           uint32_t* exp_out, uint32_t* sec1_out, uint32_t* sec2_out,
+           unsigned int* hist, unsigned int* csum, cudaStream_t s) {
+  constexpr int kSmem = kHist ? 4 * hist_words<kWide64 ? 2 : 1>() : 0;
+  const long long tpr = (w32 / 4 + kTileChunks - 1) / kTileChunks;  // tiles a row
+  if (tpr == 0) return (int)cudaSuccess;
+  auto kernel = split_wide_hist_kernel<kWide64, kHist>;
+  if (kSmem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   }
+  kernel<<<dim3((unsigned)tpr, (unsigned)batch), kSplitThreads, kSmem, s>>>(
+      x, w32, batch, n, exp_out, sec1_out, sec2_out, hist, csum);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -182,25 +247,10 @@ extern "C" int dgt_split_wide_hist(const void* in, long long batch,
                                    void* exp_out, void* sec1_out,
                                    void* sec2_out, void* hist, void* csum,
                                    void* stream) {
-  const long long groups = w32 / (fp64 ? 8 : 4);
-  long long gx = (groups + kThreads - 1) / kThreads;
-  if (gx < 1) gx = 1;
-  if (gx > kMaxGridX) gx = kMaxGridX;
-  dim3 grid((unsigned)gx, (unsigned)batch);
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* x = (const uint32_t*)in;
-  if (fp64) {
-    split_wide_hist_kernel<true, true><<<grid, kThreads, 0, s>>>(
-        x, w32, batch, (const int32_t*)n, (uint32_t*)exp_out,
-        (uint32_t*)sec1_out, (uint32_t*)sec2_out, (unsigned int*)hist,
-        (unsigned int*)csum);
-  } else {
-    split_wide_hist_kernel<false, true><<<grid, kThreads, 0, s>>>(
-        x, w32, batch, (const int32_t*)n, (uint32_t*)exp_out,
-        (uint32_t*)sec1_out, (uint32_t*)sec2_out, (unsigned int*)hist,
-        (unsigned int*)csum);
-  }
-  return (int)cudaGetLastError();
+  auto f = fp64 ? launch<true, true> : launch<false, true>;
+  return f((const uint32_t*)in, batch, w32, (const int32_t*)n,
+           (uint32_t*)exp_out, (uint32_t*)sec1_out, (uint32_t*)sec2_out,
+           (unsigned int*)hist, (unsigned int*)csum, (cudaStream_t)stream);
 }
 
 // As dgt_split_wide_hist without n, hist and csum: raw-section bytes past
@@ -208,21 +258,8 @@ extern "C" int dgt_split_wide_hist(const void* in, long long batch,
 extern "C" int dgt_split_wide(const void* in, long long batch, long long w32,
                               int fp64, void* exp_out, void* sec1_out,
                               void* sec2_out, void* stream) {
-  const long long groups = w32 / (fp64 ? 8 : 4);
-  long long gx = (groups + kThreads - 1) / kThreads;
-  if (gx < 1) gx = 1;
-  if (gx > kMaxGridX) gx = kMaxGridX;
-  dim3 grid((unsigned)gx, (unsigned)batch);
-  cudaStream_t s = (cudaStream_t)stream;
-  const uint32_t* x = (const uint32_t*)in;
-  if (fp64) {
-    split_wide_hist_kernel<true, false><<<grid, kThreads, 0, s>>>(
-        x, w32, batch, nullptr, (uint32_t*)exp_out, (uint32_t*)sec1_out,
-        (uint32_t*)sec2_out, nullptr, nullptr);
-  } else {
-    split_wide_hist_kernel<false, false><<<grid, kThreads, 0, s>>>(
-        x, w32, batch, nullptr, (uint32_t*)exp_out, (uint32_t*)sec1_out,
-        (uint32_t*)sec2_out, nullptr, nullptr);
-  }
-  return (int)cudaGetLastError();
+  auto f = fp64 ? launch<true, false> : launch<false, false>;
+  return f((const uint32_t*)in, batch, w32, nullptr, (uint32_t*)exp_out,
+           (uint32_t*)sec1_out, (uint32_t*)sec2_out, nullptr, nullptr,
+           (cudaStream_t)stream);
 }

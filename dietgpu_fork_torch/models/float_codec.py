@@ -15,9 +15,10 @@ A port of the JAX package's ``models/float_codec.py``:
   branches): no K3 merge;
 * decompress, two-pass (the default for fp32 and fp64): float header parse
   -> per plane, ANS parse, validation and a K6 decode to bytes (in place)
-  -> one K3 merge staging the raw section(s) -> K13 (16-bit,
-  ``fused=False``) or K7 joins planes and sections into float words (the
-  JAX package's two-pass branch);
+  -> K7 joins the planes with sec1 and sec2 read from the archive in place,
+  below each member's count (0 for a failed member); 16-bit types
+  (``fused=False``) stage their raw section with one K3 merge and join it
+  with K13 (the JAX package's two-pass branch, which stages both);
 * verify_checksum folds the XOR of the decoded bytes in plain torch
   (the JAX package's ``float_codec.py:453-457``).
 
@@ -57,8 +58,8 @@ from ..ops.checksum import checksum_packed
 from ..ops.float_split import (
     join16_rows,
     join16_rows_plain,
-    join_wide,
-    join_wide_plain,
+    join_wide_at,
+    join_wide_at_plain,
     split16_hist,
     split16_hist_plain,
     split_wide_hist,
@@ -299,25 +300,7 @@ def float_decompress_core(
     ans_base = base + o_s2 + torch.where(is_al, _align_section(s2w), s2w)
     b_ar = torch.arange(B, dtype=torch.int64, device=dev)
     abs_base = b_ar * CW + base
-    merge = runs_merge_plain if plain else runs_merge
     E = max(-(-out_floats // 4), 1)
-
-    def stage(widths):
-        """One K3 merge staging the raw sections, zero padded, each member's
-        row of section i widths[i] words wide: a [B, width] tensor each."""
-        offs = [abs_base + o_s1, abs_base + o_s2][: len(widths)]
-        counts = [s1w, s2w][: len(widths)]
-        dst = torch.cat([sum(widths[:i]) * B + b_ar * w
-                         for i, w in enumerate(widths)])
-        out = merge(
-            [comp32.reshape(-1)], dst,
-            torch.zeros(len(widths) * B, dtype=torch.int32, device=dev),
-            torch.cat(offs),
-            torch.cat([c.clamp(max=w) for c, w in zip(counts, widths)]),
-            B * sum(widths),
-        )
-        return [out[B * sum(widths[:i]): B * sum(widths[: i + 1])].reshape(B, w)
-                for i, w in enumerate(widths)]
 
     if fused:
         # the decode reads the raw sections in place: per 4096-float block
@@ -348,19 +331,27 @@ def float_decompress_core(
                 plane = F.pad(plane, (0, E - plane.shape[1]))
             planes.append(plane)
             success = success & ok & (psize == n)
-        # the raw section(s) staged by one merge, each row at least as wide
-        # as the join reads
-        if ft in _FLOAT16_TYPES:
-            (raw32,) = stage([max(_section_word_counts(out_floats, ft)[0], E)])
-            join16 = join16_rows_plain if plain else join16_rows
-            words32 = join16(planes[0], raw32, ft == FloatType.BFLOAT16)
-            words32 = words32[:, : -(-out_floats // 2)]
-        else:
-            ks = (2, 1) if ft == FloatType.FLOAT32 else (4, 2)
-            sec1, sec2 = stage([max(c, k * E) for c, k in
-                                zip(_section_word_counts(out_floats, ft), ks)])
-            join = join_wide_plain if plain else join_wide
-            words32 = join(planes, sec1, sec2, ft)
+        if ft not in _FLOAT16_TYPES:
+            # K7 reads the raw sections from the archive in place, below each
+            # member's count, which is 0 for a failed member: no staging, no
+            # select
+            join = join_wide_at_plain if plain else join_wide_at
+            words32 = join(comp32, planes, abs_base + o_s1, abs_base + o_s2,
+                           torch.where(success, n, 0), ft)
+            return (words32, success, n, csum_arch,
+                    _decoded_checksum(words32, n, ft, verify_checksum))
+        # the 16-bit raw section staged by one K3 merge, zero padded, each
+        # row at least as wide as the join reads
+        W = max(_section_word_counts(out_floats, ft)[0], E)
+        merge = runs_merge_plain if plain else runs_merge
+        raw32 = merge(
+            [comp32.reshape(-1)], b_ar * W,
+            torch.zeros(B, dtype=torch.int32, device=dev), abs_base + o_s1,
+            s1w.clamp(max=W), B * W,
+        ).reshape(B, W)
+        join16 = join16_rows_plain if plain else join16_rows
+        words32 = join16(planes[0], raw32, ft == FloatType.BFLOAT16)
+        words32 = words32[:, : -(-out_floats // 2)]
 
     # planes, sections and the fused decodes are zero past n, so the words
     # are too; one select zeroes failed members

@@ -21,11 +21,14 @@ with histogram; ``split_packed`` (the split alone, K1 and K5 without
 histogram: the JAX package's ``split_packed``) keeps them, capacity-sized.
 
 ``split16_hist``, ``split_wide_hist``, ``split16``, ``split_wide``,
-``join_wide`` and ``join16_rows`` send CUDA tensors to the kernels
-(``csrc/split16_hist.cu``, ``csrc/split_wide_hist.cu``,
+``join_wide``, ``join_wide_at`` and ``join16_rows`` send CUDA tensors to
+the kernels (``csrc/split16_hist.cu``, ``csrc/split_wide_hist.cu``,
 ``csrc/join_wide.cu``) and CPU tensors to their plain versions, built
 from the JAX package's ``split_packed`` + ``histogram_packed`` +
 ``checksum_packed`` + ``mask_packed_bytes``, and ``join_packed``.
+``join_wide`` takes the raw sections as tensors; ``join_wide_at`` (K7's
+archive mode, the two-pass fp32/fp64 decode) reads them from the archive
+in place and joins only the floats below a per-member count.
 """
 
 from __future__ import annotations
@@ -347,6 +350,74 @@ def join_wide_plain(planes, sec1, sec2, float_type):
     """Plain PyTorch version of K7; runs on any device."""
     ft = _wide_type(float_type)
     _check_join_args(list(planes), sec1, sec2, ft)
+    return _join_wide(planes, sec1, sec2, ft)
+
+
+def _check_join_at_args(comp32, planes, s1_off, s2_off, count, ft):
+    P = 2 if ft == FloatType.FLOAT64 else 1
+    if len(planes) != P:
+        raise ValueError(f"{ft.name} takes {P} exponent plane(s)")
+    if comp32.dtype != torch.int32 or comp32.dim() != 2 or not comp32.is_contiguous():
+        raise TypeError("comp32 must be a contiguous 2-D torch.int32 tensor")
+    if comp32.numel() == 0:
+        raise ValueError("comp32 must not be empty")
+    B, E = planes[0].shape
+    if E == 0:
+        raise ValueError("the exponent planes must not be empty")
+    for p in planes:
+        if p.dtype != torch.int32 or p.shape != (B, E) or p.stride(1) != 1:
+            raise TypeError(f"planes must be int32[{B}, {E}] with contiguous rows")
+    for name, t in (("s1_off", s1_off), ("s2_off", s2_off), ("count", count)):
+        if t.dtype != torch.int64 or t.shape != (B,) or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous torch.int64 of shape [{B}]")
+    if any(t.device != comp32.device for t in (*planes, s1_off, s2_off, count)):
+        raise ValueError("all inputs must lie on one device")
+
+
+def join_wide_at(comp32: torch.Tensor, planes: Sequence[torch.Tensor],
+                 s1_off: torch.Tensor, s2_off: torch.Tensor,
+                 count: torch.Tensor, float_type) -> torch.Tensor:
+    """K7 reading the raw sections from the archive in place: the join of
+    ``join_wide`` with sec1 and sec2 of member b starting at words
+    s1_off[b] and s2_off[b] (int64[B]) of ``comp32.reshape(-1)``, any 4 B
+    phase, words past the archive's ends read as its end words (clamped).
+
+    planes: [exp] or [exp0, exp1], int32[B, E] with contiguous rows; count:
+    int64[B] floats to join. Returns int32[B, 4E] (fp32) or [B, 8E] (fp64):
+    the joined floats below count[b], zeros from it on; nothing of a float
+    at or past its count is read.
+    """
+    ft = _wide_type(float_type)
+    planes = list(planes)
+    _check_join_at_args(comp32, planes, s1_off, s2_off, count, ft)
+    if use_kernels(comp32):
+        return K.join_wide_at(comp32, planes, s1_off, s2_off, count, ft)
+    return join_wide_at_plain(comp32, planes, s1_off, s2_off, count, ft)
+
+
+def join_wide_at_plain(comp32, planes, s1_off, s2_off, count, float_type):
+    """Plain PyTorch version of K7 in archive mode; runs on any device:
+    gathers each section at capacity width with the clamp, joins, then
+    zeroes the floats at or past the count."""
+    ft = _wide_type(float_type)
+    planes = list(planes)
+    _check_join_at_args(comp32, planes, s1_off, s2_off, count, ft)
+    flat = comp32.reshape(-1)
+    B, E = planes[0].shape
+    k1, k2 = (2, 1) if ft == FloatType.FLOAT32 else (4, 2)
+
+    def gather(off, width):
+        idx = off[:, None] + torch.arange(width, dtype=torch.int64, device=flat.device)
+        return flat[idx.clamp(0, flat.numel() - 1)]
+
+    out = _join_wide(planes, gather(s1_off, k1 * E), gather(s2_off, k2 * E), ft)
+    keep = torch.arange(4 * E, dtype=torch.int64, device=flat.device) < count[:, None]
+    if ft == FloatType.FLOAT64:  # two words a float
+        keep = keep.repeat_interleave(2, dim=1)
+    return torch.where(keep, out, 0)
+
+
+def _join_wide(planes, sec1, sec2, ft: FloatType):
     E = planes[0].shape[1]
     e = [unpack_bytes(to_u32(p)) for p in planes]  # one byte per float
     if ft == FloatType.FLOAT32:

@@ -68,6 +68,7 @@ launches: Dict[str, int] = {
     "split_wide_hist": 0,
     "rans_decode_rows": 0,
     "join_wide": 0,
+    "join_wide_at": 0,
     "byte_hist": 0,
     "rans_encode_blocks": 0,
     "rans_decode_blocks": 0,
@@ -169,7 +170,7 @@ def library() -> ctypes.CDLL:
         "dgt_runs_merge": [P, P, I, P, P, P, P, L, P, L, P],
         "dgt_rans_decode": [I, I, P, L, P, P, P, P, P, P, I, P, P, L, L, I, P, P],
         "dgt_split_wide_hist": [P, L, L, P, I, P, P, P, P, P, P],
-        "dgt_join_wide": [P, L, P, L, P, L, P, L, L, L, I, P, P],
+        "dgt_join_wide": [P, L, P, L, P, P, L, P, P, L, L, P, L, L, I, P, P],
         "dgt_byte_hist": [P, L, L, P, P, P, P],
         "dgt_rans_encode_blocks": [P, P, P, P, L, L, I, P, P, P, P],
         "dgt_bitmap_pack": [P, L, L, L, P, L, I, P, P],
@@ -468,27 +469,46 @@ def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
     return out
 
 
-def join_wide(planes, sec1, sec2, float_type):
-    """K7 launch; arguments as ``ops.float_split.join_wide``."""
-    _cuda_only(*planes, sec1, sec2)
+def _join_wide(counter: str, planes, sec1, sec2, nwords: int, s1, s2, count,
+               float_type):
+    """One K7 launch. Tensor mode: s1 and s2 are the sections' row strides
+    (ints) and count is None; archive mode: they are int64[B] word offsets
+    into sec1 == sec2 == the archive of nwords words, and count int64[B]."""
     fp64 = FloatType(float_type) == FloatType.FLOAT64
     B, E = planes[0].shape
     _batch_ok(B)
-    _aligned(sec1, 16 if fp64 else 8, "sec1")
-    _aligned(sec2, 8 if fp64 else 4, "sec2")
     exp1 = planes[1] if fp64 else planes[0]
     dev = sec1.device
     out = torch.empty((B, (8 if fp64 else 4) * E), dtype=torch.int32, device=dev)
+    at = count is not None
     lib = library()
     with torch.cuda.device(dev):
         err = lib.dgt_join_wide(
             planes[0].data_ptr(), planes[0].stride(0), exp1.data_ptr(),
-            exp1.stride(0), sec1.data_ptr(), sec1.stride(0), sec2.data_ptr(),
-            sec2.stride(0), B, E, int(fp64), out.data_ptr(), _stream(sec1),
+            exp1.stride(0), sec1.data_ptr(), sec2.data_ptr(), nwords,
+            s1.data_ptr() if at else None, s2.data_ptr() if at else None,
+            0 if at else s1, 0 if at else s2,
+            count.data_ptr() if at else None, B, E, int(fp64), out.data_ptr(),
+            _stream(sec1),
         )
-    _check(lib, err, "join_wide")
-    launches["join_wide"] += 1
+    _check(lib, err, counter)
+    launches[counter] += 1
     return out
+
+
+def join_wide(planes, sec1, sec2, float_type):
+    """K7 launch, tensor mode; arguments as ``ops.float_split.join_wide``."""
+    _cuda_only(*planes, sec1, sec2)
+    return _join_wide("join_wide", planes, sec1, sec2, (1 << 63) - 1,
+                      sec1.stride(0), sec2.stride(0), None, float_type)
+
+
+def join_wide_at(comp32, planes, s1_off, s2_off, count, float_type):
+    """K7 launch, archive mode; arguments as
+    ``ops.float_split.join_wide_at``."""
+    _cuda_only(comp32, *planes, s1_off, s2_off, count)
+    return _join_wide("join_wide_at", planes, comp32, comp32, comp32.numel(),
+                      s1_off, s2_off, count, float_type)
 
 
 def byte_hist(rows: torch.Tensor, sizes: torch.Tensor):

@@ -72,6 +72,34 @@ def test_split_wide_hist_equals_jax_pallas_interpret(ft, monkeypatch):
     _assert_split_equal(_port_split(d, n, ft), planes, secs, hists, csum)
 
 
+def _one_bin_rows(seed, B, W32):
+    """fp64 floats in [1, 2) as u32 word pairs: every plane-0 byte (the
+    exponent's top 8 bits) falls in one bin."""
+    x = 1 + np.random.default_rng(seed).random((B, W32 // 2))
+    return np.ascontiguousarray(x).view(np.uint32)
+
+
+@pytest.mark.parametrize("interpret", [False, True])
+@pytest.mark.parametrize("W32,ns", CASES)
+def test_split_wide_hist_one_bin_fp64_equals_jax(W32, ns, interpret, monkeypatch):
+    """fp64 data whose plane-0 bytes sit in one bin, the case that puts
+    every lane's count on one shared address: the histograms and the rest
+    of the split equal the JAX package's, portable and Pallas (interpret)."""
+    if interpret:
+        monkeypatch.setenv("DIETTPU_INTERPRET", "1")
+    ft = JFT.FLOAT64
+    d = _one_bin_rows(40 + W32, len(ns), W32)
+    n = np.array(ns, np.int32)
+    planes, raw, hists, csum = JS.split_hist_packed(jnp.asarray(d), jnp.asarray(n), ft)
+    secs = raw if interpret else [JC.mask_packed_bytes(s, jnp.asarray(n * bp))
+                                  for s, bp in zip(raw, SEC_BYTES[ft])]
+    got = _port_split(d, n, ft)
+    _assert_split_equal(got, planes, secs, hists, csum)
+    h0 = got[3][: len(ns)]  # plane 0
+    assert ((h0 > 0).sum(dim=1) == torch.from_numpy((n > 0).astype(np.int64))).all()
+    assert torch.equal(h0.sum(dim=1), torch.from_numpy(n.astype(np.int64)).to(h0.dtype))
+
+
 @pytest.mark.parametrize("ft", WIDE)
 @pytest.mark.parametrize("interpret", [False, True])
 def test_join_wide_inverts_the_split_and_equals_jax(ft, interpret, monkeypatch):
@@ -92,7 +120,7 @@ def test_join_wide_inverts_the_split_and_equals_jax(ft, interpret, monkeypatch):
 
 @pytest.mark.parametrize("ft", WIDE)
 def test_join_wide_reads_only_what_it_needs_of_wider_sections(ft):
-    """The decoder stages sections at capacity widths: the join reads
+    """Tensor mode takes section rows wider than it needs: the join reads
     the first 2E/E (fp32) or 4E/2E (fp64) words of each row."""
     W32 = 256
     d = _rows(30 + int(ft), 2, W32)
