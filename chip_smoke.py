@@ -55,7 +55,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    with dead blocks in the last row, rows only 4 B aligned, uniform bytes,
    single-symbol members, a block past the classic cap under the row cap;
    rowwise rows not a multiple of 8, 1, 5 and 128 indices a row, indices
-   past both ends), K15, K10 and K11 to theirs in bf16, fp32 and fp64 on
+   past both ends), K9, K15, K10 and K11 to theirs in bf16, fp32 and fp64 on
    ragged sparse batches (``phase_sparse_edges``: members around the tiles,
    one across 3 of K15's tiles, nnz 0, nnz = n and n = 0, counts ending
    mid-byte and mid-word, rows off 16 B boundaries, a 16-bit run starting
@@ -65,7 +65,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    and without histograms) and K7 (archive and tensor modes) in fp32 and
    fp64 (``phase_wide_edges``: counts around both kernels' tiles, 0,
    inside a plane word and past the row, N(0,1) and one-bin fp64 data,
-   sections at every word phase and past the archive's end); checks that a
+   sections at every word phase and past the archive's end), and K1 (with
+   and without histogram) in bf16 and fp16 (``phase_split16_edges``: rows
+   8 B past a 16 B boundary, bases 4 and 8 B past one, counts inside a
+   word and a chunk, around K1's tile and at the row's capacity, N(0,1) and
+   one-bin data); checks that a
    core round trip makes at most ``K3_MAX_LAUNCHES`` K3 launches (phase 3:
    the compress merge, and the bf16 two-pass decode's raw staging);
    round-trips a ragged bf16 batch of 128 members and ragged fp32 and
@@ -85,7 +89,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 compress and decompress, each decode formulation's decompress, each S
 path's rank scan alone (K15, and the plain version, which is how the
 scan ran before K15), phase O's run, each of its lookups alone and their
-library calls
+library calls, K1 alone with and without histogram on N(0,1) and one-bin
+bf16 data
 (``profile_paths``: the top device ops and every ``csrc`` kernel's device
 time), then times the host work of K14 rowwise's wrapper piece by piece
 (``wrapper_breakdown``), and prints no result.
@@ -128,7 +133,11 @@ from dietgpu_fork_torch.models.sparse import (
     sparse_float_compress_padded,
     sparse_float_decompress_core,
 )
-from dietgpu_fork_torch.ops.bitmap_pack import bitmap_words, pack_bitmap_plain
+from dietgpu_fork_torch.ops.bitmap_pack import (
+    bitmap_words,
+    pack_bitmap,
+    pack_bitmap_plain,
+)
 from dietgpu_fork_torch.ops.bitops import from_u32
 from dietgpu_fork_torch.ops.float_split import (
     join16_rows,
@@ -137,6 +146,8 @@ from dietgpu_fork_torch.ops.float_split import (
     join_wide_at,
     join_wide_at_plain,
     join_wide_plain,
+    split16,
+    split16_hist,
     split16_hist_plain,
     split16_plain,
     split_packed,
@@ -175,6 +186,7 @@ from dietgpu_fork_torch.ops.table import normalize_probs_batched, pack_encode_ta
 from dietgpu_fork_torch.runtime import cuda_kernels as K
 
 BF16, FP32, FP64 = FloatType.BFLOAT16, FloatType.FLOAT32, FloatType.FLOAT64
+FP16 = FloatType.FLOAT16
 # sha256 of the archive (its first comp_bytes bytes) of golden_input(ft):
 # prob_bits 10, native, n = 2^20 + 4097 (a v2 container with a partial row
 # and a partial block). tests/test_torch_float_codec.py (bf16) and
@@ -276,6 +288,16 @@ K3_MAX_LAUNCHES = {P_BF16: 2, P_FP32: 1, P_FP64: 1}
 WIDE_EDGE_CAP = 20_004
 WIDE_EDGE_COUNTS = (0, 1, 3, 5, 2047, 2049, 4095, 4096, 4097, 8191, 8193,
                     WIDE_EDGE_CAP, WIDE_EDGE_CAP + 100)
+# K1 edges (``split16_edge_inputs``): rows of SPLIT16_EDGE_W32 = 2 (mod 4)
+# words, so odd rows start 8 B past a 16 B boundary and their outputs 4 B
+# past an 8 B one; counts 0, 1, 3 (inside a word), 5 and 9 (inside a 16 B
+# chunk, either chunk phase), around K1's tile (16384 floats), inside a
+# later tile and at and below the row's capacity.
+# tests/test_torch_split16_edges.py holds the plain versions to the JAX
+# package on the same inputs.
+SPLIT16_EDGE_W32 = 3 * 8192 + 2
+SPLIT16_EDGE_COUNTS = (0, 1, 3, 5, 9, 16383, 16384, 16385, 2 * 16384 + 7,
+                       2 * SPLIT16_EDGE_W32 - 1, 2 * SPLIT16_EDGE_W32)
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -423,10 +445,11 @@ def _join_at_need(a) -> int:
 
 
 # the bytes of the inputs whose use depends on the data, as (argument
-# index or indices, the bytes that the call's data needs of them)
+# index or indices, the bytes that the call's data needs of them). The
+# splits (K1, K5) are not here: their exponent planes are capacity-sized
+# and unmasked, so they read every input word whatever the counts.
 _DATA_INPUT = {
     "join_wide_at": ((0, 1), _join_at_need),
-    "split16_hist": (0, lambda a: 2 * int(a[1].sum())),
     "encode_rows": (0, lambda a: int(a[1].sum())),
     "encode_blocks": (0, lambda a: int(a[1].sum())),
     "runs_merge": (0, lambda a: 4 * int(a[4].sum())),
@@ -434,7 +457,6 @@ _DATA_INPUT = {
     "decode_join16_blocks": (0, _decode_need),
     "decode_rows": (0, _decode_need),
     "decode_blocks": (0, _decode_need),
-    "split_wide_hist": (0, lambda a: _ws(a[2]) * int(a[1].sum())),
     "byte_hist": (0, lambda a: int(a[1].sum())),
     "pack_bitmap": (0, lambda a: _ws(a[2]) * int(a[1].sum())),
     "compact_by_bitmap": (0, lambda a: _ws(a[3]) * _nnz(a[2])),
@@ -824,6 +846,16 @@ class OpsPhase:
             ("rowwise lookup", lambda: rowwise_lookup(self.tabs, self.tab_idx)),
             ("chunked gather", library_call("chunked_lookup", (self.lut, self.lut_idx))),
             ("rowwise gather", library_call("rowwise_lookup", (self.tabs, self.tab_idx))))
+        # for the profile, K1 alone with and without histogram on the bf16
+        # rows and on one-bin bf16 data (every exponent byte in one bin)
+        one_bin = (1 + 0.2 * torch.rand(MAIN_N, generator=g, device=dev)).to(
+            torch.bfloat16).view(torch.int16).view(torch.int32).view(1, -1)
+        n = torch.tensor([MAIN_N], dtype=torch.int32, device=dev)
+        self.k1_alone = tuple(
+            (f"K1 {what} {data}", fn)
+            for data, d in (("N(0,1)", self.rows[BF16]), ("one-bin", one_bin))
+            for what, fn in (("histogram", lambda d=d: split16_hist(d, n, True)),
+                             ("split alone", lambda d=d: split16(d, True))))
 
     def run(self):
         """{type: split then join of its rows, "chunked", "rowwise"}."""
@@ -1249,7 +1281,7 @@ def sparse_edge_inputs(case: str, ft, dev):
 
 
 def phase_sparse_edges(dev):
-    """K15, K10 and K11 against their plain versions, bit for bit, on
+    """K9, K15, K10 and K11 against their plain versions, bit for bit, on
     SPARSE_EDGE_CASES in bf16, fp32 and fp64, each kernel launched once a
     case; checks that the edges are there (an odd run start in bf16, ranks
     past the nonzero row)."""
@@ -1258,16 +1290,18 @@ def phase_sparse_edges(dev):
             data32, n, bm32, nz32, out_floats = sparse_edge_inputs(case, ft, dev)
             torch.cuda.synchronize()
             K.reset_launches()
+            bm = pack_bitmap(data32, n, ft)
             ranks = word_ranks(bm32, n)
             packed = compact_by_bitmap(data32, bm32, ranks, ft)
             out = expand_by_bitmap(nz32, bm32, ranks, n, out_floats, ft)
             torch.cuda.synchronize()
-            ran = {c: K.launches[c] for c in ("word_ranks", "sparse_compact",
-                                              "sparse_expand")}
+            ran = {c: K.launches[c] for c in ("bitmap_pack", "word_ranks",
+                                              "sparse_compact", "sparse_expand")}
             check(all(v == 1 for v in ran.values()),
                   f"sparse edge {case} {ft.name}: launches {ran}")
             p_ranks = word_ranks_plain(bm32, n)
             for name, got, want in (
+                    ("pack_bitmap", bm, bm32),
                     ("word_ranks", ranks, p_ranks),
                     ("compact_by_bitmap", packed,
                      compact_by_bitmap_plain(data32, bm32, p_ranks, ft)),
@@ -1283,7 +1317,7 @@ def phase_sparse_edges(dev):
             if case == "ragged" and ft == BF16:
                 check(int(ranks[3, 256]) % 2 == 1,
                       "ragged edge: a bf16 run starts at an odd slot")
-        print(f"sparse edges {case}: K15, K10, K11 in bf16, fp32, fp64 equal "
+        print(f"sparse edges {case}: K9, K15, K10, K11 in bf16, fp32, fp64 equal "
               f"to plain (n {n.tolist()}, nnz {ranks[:, -1].tolist()}, "
               f"out_floats {out_floats}, K11 rows of {nz_cap} fp64 floats)")
 
@@ -1319,6 +1353,66 @@ def phase_misaligned(dev):
     print("misaligned decode: bf16 and fp32 fused and two-pass, fp64 "
           "two-pass, both layouts, archives at words 1-3, equal to the "
           "aligned decode and to the plain decode")
+
+
+def split16_edge_inputs(ft, one_bin: bool, dev):
+    """K1's edge inputs in bf16 or fp16 on dev: (data32 int32[B,
+    SPLIT16_EDGE_W32], N(0,1) or, with one_bin, in [1, 1.2) (every exponent
+    byte in one bin, in either type), random floats past each count too;
+    n int32[B], the SPLIT16_EDGE_COUNTS)."""
+    rng = np.random.default_rng(100 + 2 * int(ft) + int(one_bin))
+    B, cap = len(SPLIT16_EDGE_COUNTS), 2 * SPLIT16_EDGE_W32
+    x = 1 + 0.2 * rng.random((B, cap)) if one_bin else rng.normal(0, 1, (B, cap))
+    if ft == BF16:
+        words = (x.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
+    else:
+        words = x.astype(np.float16).view(np.uint16)
+    data32 = rows_from_numpy(pack_rows(list(words), cap), dev)
+    return data32, torch.tensor(SPLIT16_EDGE_COUNTS, dtype=torch.int32, device=dev)
+
+
+def phase_split16_edges(dev):
+    """K1 with and without histogram against its plain versions, bit for
+    bit, on ``split16_edge_inputs`` in bf16 and fp16, N(0,1) and one-bin
+    data, each launched once a case: the rows where they lie (odd rows 8 B
+    past a 16 B boundary) and copied to bases 4 and 8 B past one (a tile's
+    pairs each alone)."""
+    for ft in (BF16, FP16):
+        bf16 = ft == BF16
+        for one_bin in (False, True):
+            data32, n = split16_edge_inputs(ft, one_bin, dev)
+            what = f"{ft.name} {'one-bin' if one_bin else 'N(0,1)'}"
+            for shift in (0, 1, 2):
+                x = data32
+                if shift:
+                    flat = torch.zeros(data32.numel() + shift, dtype=torch.int32,
+                                       device=dev)
+                    x = flat[shift:].view(data32.shape)
+                    x.copy_(data32)
+                torch.cuda.synchronize()
+                K.reset_launches()
+                got_h = split16_hist(x, n, bf16)
+                got_s = split16(x, bf16)
+                torch.cuda.synchronize()
+                ran = {c: K.launches[c] for c in ("split16_hist", "split16")}
+                check(all(v == 1 for v in ran.values()),
+                      f"split16 edge {what} at {x.data_ptr() % 16} mod 16 B: "
+                      f"launches {ran}")
+                for name, got, want in (
+                        ("split16_hist", got_h, split16_hist_plain(x, n, bf16)),
+                        ("split16", got_s, split16_plain(x, bf16))):
+                    err = max_abs_err(got, want)
+                    check(err == 0, f"{name} on the {what} edge at "
+                                    f"{x.data_ptr() % 16} mod 16 B differs from "
+                                    f"its plain version by {err}")
+            if one_bin:
+                hist = got_h[2]
+                check(bool(((hist > 0).sum(dim=1) <= 1).all()) and int(hist.sum()) > 0,
+                      f"one-bin edge: {ft.name} exponent bytes in one bin")
+        print(f"split16 edges {ft.name}: K1 with and without histogram, N(0,1) "
+              f"and one-bin, counts {list(SPLIT16_EDGE_COUNTS)} in rows of "
+              f"{SPLIT16_EDGE_W32} words, bases at 0, 4 and 8 mod 16 B: equal "
+              "to plain")
 
 
 def wide_edge_inputs(ft, one_bin: bool, dev):
@@ -1426,7 +1520,8 @@ def profile_paths(paths, ops, card: str) -> None:
     """``--profile``: for each main path's compress and decompress (a
     decode formulation's decompress alone; an S path's rank scan alone too,
     K15 and the plain version; phase O's run, each of its lookups alone and
-    their library calls), the host-clock median of 10
+    their library calls, K1 alone with and without histogram on N(0,1) and
+    one-bin 16Mi bf16), the host-clock median of 10
     calls ending in a synchronise, and from a torch.profiler trace of 5
     calls after 3 warm-ups the device busy time (kernels, copies and
     fills), the idle share (1 - busy / host), the host's kernel launches,
@@ -1443,7 +1538,7 @@ def profile_paths(paths, ops, card: str) -> None:
         if mp is ops:
             # each lookup alone and its library call too, device time
             # against device time
-            runs = (("run", ops.run),) + ops.lookups
+            runs = (("run", ops.run),) + ops.lookups + ops.k1_alone
         else:
             arc = mp.compress()[0]
             runs = (("compress", mp.compress),
@@ -1756,6 +1851,7 @@ def main() -> int:
     phase_sparse_edges(dev)
     phase_misaligned(dev)
     phase_wide_edges(dev)
+    phase_split16_edges(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)
     ragged_batch(FP64, 64, 300, dev)

@@ -17,118 +17,196 @@
 //   bf16 first rotates each 16-bit half left by 1 (sign into the raw byte);
 //   exp = the 4 high bytes, raw = the 4 low bytes, raw bytes >= n zeroed;
 //   hist[b] counts the exponent bytes of floats < n;
-//   csum[b] = XOR of the first 2n input bytes (XOR of masked words, then a
-//   fold of the 4 byte positions, which is linear, so each CTA folds its
-//   own part and XORs one byte into csum[b]).
+//   csum[b] = XOR of the first 2n input bytes.
 //
-// Bound on the card: device memory (per float 2 B read, 2 B written). The
-// histogram goes to a shared u32[256] per CTA with shared-memory atomics and
-// then once per bin to global memory; the checksum is a warp XOR shuffle and
-// one global atomic per CTA. Exponent bytes of real data sit in a few bins,
-// so the shared atomics contend; per-warp sub-histograms are the next step.
+// Bound on the card: device memory, per float 2 B read and 2 B written
+// (the exponent plane is capacity-sized and unmasked, so the whole row is
+// read whatever n is). Design, K5's carried to 16 bits: a CTA of 512
+// threads takes one tile of a row (4096 pairs, 32 KiB of input), 4 chunks
+// of 16 B (4 input words, 2 pairs) a thread, and starts all of its tile's
+// loads before its first store; a chunk gives 8 B of plane and 8 B of raw,
+// stored as uint2. Indices inside a tile are 32-bit from one int64 base,
+// and a chunk's tail mask is taken once (a branch only the chunk that holds
+// the count takes). The histogram is lane-private, two bins a word
+// (csrc/split_hist.cuh, shared with K5), so a warp's increments go in one
+// pass on one-bin data too, and a CTA flushes it once. Its 16 Mi shared
+// atomics a 16Mi-float call are what the histogram costs over the split
+// alone. A one-off sweep on an H100 chose 512 threads and 4 chunks a
+// thread over 256 x 8 (the first design), 256 x 4, 512 x 2 and 1024 x 1-2,
+// and counting after all of a thread's stores.
+//
+// Row phase: a row of W32 = 2 (mod 4) words may start 8 B past a 16 B
+// boundary, and its output rows (W32/2 words) 4 B past an 8 B one. A tile
+// then takes its first pair alone, so its chunks are 16 B aligned on the
+// input and 8 B aligned on both outputs; a pair left at the tile's end
+// goes alone too (one pair a thread, 4 B accesses). A row whose input or
+// outputs cannot be aligned so (a base 4 B past an 8 B boundary) takes every
+// pair alone: slower, right at any 4 B phase, and off the main paths.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "split_hist.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxGridX = 1024;
+using split_hist::byte_mask;
+using split_hist::count_byte;
+
+constexpr int kThreads = 512;
+constexpr int kUnits = 4;                         // 16 B chunks a thread a tile
+constexpr int kTilePairs = 2 * kThreads * kUnits;  // input word pairs a tile
+static_assert(4 * kTilePairs <= split_hist::kMaxTileFloats,
+              "a tile's counts fit a bin's 16 bits");
 
 __device__ __forceinline__ uint32_t rotl16x2(uint32_t x) {
   return ((x << 1) & 0xFFFEFFFEu) | ((x >> 15) & 0x00010001u);
 }
 
-// Keeps the first clamp(nbytes, 0, 4) little-endian bytes of a word.
-__device__ __forceinline__ uint32_t byte_mask(int64_t nbytes) {
-  if (nbytes >= 4) return 0xFFFFFFFFu;
-  if (nbytes <= 0) return 0u;
-  return (1u << (8 * nbytes)) - 1u;
+// One pair of input words (4 floats) -> its exponent-plane word (the high
+// bytes) and raw-section word (the low bytes).
+template <bool kBf16>
+__device__ __forceinline__ void split_pair(uint32_t a0, uint32_t a1,
+                                           uint32_t& e, uint32_t& r) {
+  if constexpr (kBf16) {
+    a0 = rotl16x2(a0);
+    a1 = rotl16x2(a1);
+  }
+  e = __byte_perm(a0, a1, 0x7531);
+  r = __byte_perm(a0, a1, 0x6420);
 }
 
 // kHist: the histogram, the checksum and the tail mask at n; else the split
-// alone (n, hist and csum unused).
-template <bool kHist>
+// alone (n, hist and csum unused). CTA (x, y) takes tile x of row y.
+template <bool kHist, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 split16_hist_kernel(const uint32_t* __restrict__ in, int64_t w32,
-                    const int32_t* __restrict__ n, int bf16,
+                    int64_t batch, const int32_t* __restrict__ n,
                     uint32_t* __restrict__ exp_out,
                     uint32_t* __restrict__ raw_out,
                     unsigned int* __restrict__ hist,
                     unsigned int* __restrict__ csum) {
-  __shared__ unsigned int sh_hist[kHist ? 256 : 1];
+  __shared__ __align__(16) uint32_t sh_hist[kHist ? split_hist::words<1>() : 4];
   __shared__ uint32_t sh_xor[kThreads / 32];
-  const int64_t b = blockIdx.y;
   if constexpr (kHist) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) sh_hist[i] = 0;
+    split_hist::zero<kThreads, 1>(sh_hist);
     __syncthreads();
   }
 
-  const int64_t nf = kHist ? n[b] : 0;
-  const int64_t half = w32 / 2;
-  const uint32_t* row = in + b * w32;
+  const int64_t half = w32 / 2;  // pairs a row
+  const int64_t b = blockIdx.y;
+  const int64_t p0 = (int64_t)blockIdx.x * kTilePairs;  // the tile's first pair
+  const int tp = (int)(half - p0 < kTilePairs ? half - p0 : kTilePairs);
+  // the tile's input, its plane words and its raw words, pair q at word q
+  const uint32_t* t_in = in + b * w32 + 2 * p0;
+  uint32_t* t_e = exp_out + b * half + p0;
+  uint32_t* t_r = raw_out + b * half + p0;
+  // chunks from pair c0 on, nc of them; the pairs before and after go alone
+  const uintptr_t ia = reinterpret_cast<uintptr_t>(t_in);
+  const int h = (int)((ia >> 3) & 1);
+  const bool vec = (ia & 7) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(t_e + h) |
+                     reinterpret_cast<uintptr_t>(t_r + h)) & 7) == 0;
+  const int c0 = vec ? h : 0;
+  const int nc = vec ? (tp - h) / 2 : 0;
+  // the tile's floats below n
+  int lim = 4 * tp;
+  if constexpr (kHist) {
+    const int64_t nl = n[b] - 4 * p0;
+    lim = nl <= 0 ? 0 : (nl < lim ? (int)nl : lim);
+  }
   uint32_t x = 0;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < half;
-       j += (int64_t)gridDim.x * blockDim.x) {
-    const uint32_t a0 = row[2 * j];
-    const uint32_t a1 = row[2 * j + 1];
+
+  const uint4* src = reinterpret_cast<const uint4*>(t_in + 2 * c0);
+  uint2* e_dst = reinterpret_cast<uint2*>(t_e + c0);
+  uint2* r_dst = reinterpret_cast<uint2*>(t_r + c0);
+  uint4 v[kUnits];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int c = k * kThreads + threadIdx.x;
+    if (c < nc) v[k] = __ldg(src + c);
+  }
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int c = k * kThreads + threadIdx.x;  // the chunk in the tile
+    if (c >= nc) continue;
+    const uint4 a = v[k];
+    uint32_t e0, r0, e1, r1;
+    split_pair<kBf16>(a.x, a.y, e0, r0);
+    split_pair<kBf16>(a.z, a.w, e1, r1);
     if constexpr (kHist) {
-      x ^= (a0 & byte_mask(2 * nf - 8 * j)) ^
-           (a1 & byte_mask(2 * nf - 8 * j - 4));
-    }
-    const uint32_t we = bf16 ? rotl16x2(a0) : a0;
-    const uint32_t wo = bf16 ? rotl16x2(a1) : a1;
-    const uint32_t e = ((we >> 8) & 0xFFu) | ((we >> 24) << 8) |
-                       (((wo >> 8) & 0xFFu) << 16) | ((wo >> 24) << 24);
-    const uint32_t r = (we & 0xFFu) | (((we >> 16) & 0xFFu) << 8) |
-                       ((wo & 0xFFu) << 16) | (((wo >> 16) & 0xFFu) << 24);
-    exp_out[b * half + j] = e;
-    if constexpr (kHist) {
-      const int64_t left = nf - 4 * j;  // floats of this word below n
-      raw_out[b * half + j] = r & byte_mask(left);
-      for (int k = 0; k < 4; ++k) {
-        if (k < left) atomicAdd(&sh_hist[(e >> (8 * k)) & 0xFFu], 1u);
+      // floats of the chunk below n
+      const int left = min(max(lim - 4 * (c0 + 2 * c), 0), 8);
+      if (left == 8) {
+        x ^= a.x ^ a.y ^ a.z ^ a.w;
+      } else {  // the chunk that holds the count, or one past it
+        x ^= (a.x & byte_mask(2 * left)) ^ (a.y & byte_mask(2 * left - 4)) ^
+             (a.z & byte_mask(2 * left - 8)) ^ (a.w & byte_mask(2 * left - 12));
+        r0 &= byte_mask(left);
+        r1 &= byte_mask(left - 4);
       }
-    } else {
-      raw_out[b * half + j] = r;
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        count_byte(sh_hist, 0, (e0 >> (8 * f)) & 0xFFu, f < left);
+        count_byte(sh_hist, 0, (e1 >> (8 * f)) & 0xFFu, 4 + f < left);
+      }
     }
+    e_dst[c] = make_uint2(e0, e1);
+    r_dst[c] = make_uint2(r0, r1);
+  }
+
+  // the pairs before the chunks and after them, one a thread
+  const int tail0 = c0 + 2 * nc;
+  for (int k = threadIdx.x; k < tp - 2 * nc; k += kThreads) {
+    const int q = k < c0 ? k : tail0 + (k - c0);  // the pair in the tile
+    const uint32_t a0 = __ldg(t_in + 2 * q), a1 = __ldg(t_in + 2 * q + 1);
+    uint32_t e, r;
+    split_pair<kBf16>(a0, a1, e, r);
+    if constexpr (kHist) {
+      const int left = min(max(lim - 4 * q, 0), 4);
+      x ^= (a0 & byte_mask(2 * left)) ^ (a1 & byte_mask(2 * left - 4));
+      r &= byte_mask(left);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        count_byte(sh_hist, 0, (e >> (8 * f)) & 0xFFu, f < left);
+      }
+    }
+    t_e[q] = e;
+    t_r[q] = r;
   }
   if constexpr (kHist) {
-    for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(0xFFFFFFFFu, x, o);
-    if ((threadIdx.x & 31) == 0) sh_xor[threadIdx.x >> 5] = x;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      uint32_t t = 0;
-      for (int w = 0; w < kThreads / 32; ++w) t ^= sh_xor[w];
-      t ^= t >> 16;
-      t ^= t >> 8;
-      t &= 0xFFu;
-      if (t) atomicXor(&csum[b], t);
-    }
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-      if (sh_hist[i]) atomicAdd(&hist[b * 256 + i], sh_hist[i]);
-    }
+    split_hist::flush<kThreads, 1>(sh_hist, sh_xor, x, b, batch, hist, csum);
   }
+}
+
+// One CTA a tile of kTilePairs pairs.
+template <bool kHist>
+int launch(const uint32_t* in, long long batch, long long w32, const int32_t* n,
+           int bf16, uint32_t* exp_out, uint32_t* raw_out, unsigned int* hist,
+           unsigned int* csum, cudaStream_t s) {
+  const long long tpr = (w32 / 2 + kTilePairs - 1) / kTilePairs;  // tiles a row
+  if (tpr == 0) return (int)cudaSuccess;
+  auto kernel = bf16 ? split16_hist_kernel<kHist, true>
+                     : split16_hist_kernel<kHist, false>;
+  kernel<<<dim3((unsigned)tpr, (unsigned)batch), kThreads, 0, s>>>(
+      in, w32, batch, n, exp_out, raw_out, hist, csum);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// in: u32[B, w32] (w32 even); n: i32[B] float counts; exp_out, raw_out:
-// u32[B, w32/2]; hist: u32[B, 256] and csum: u32[B], both zeroed by the
-// caller. Returns cudaGetLastError() after the launch.
+// in: u32[B, w32] (w32 even, rows at any 4 B phase); n: i32[B] float
+// counts; exp_out, raw_out: u32[B, w32/2]; hist: u32[B, 256] and csum:
+// u32[B], both zeroed by the caller. Returns cudaGetLastError() after the
+// launch.
 extern "C" int dgt_split16_hist(const void* in, long long batch, long long w32,
                                 const void* n, int bf16, void* exp_out,
                                 void* raw_out, void* hist, void* csum,
                                 void* stream) {
-  const long long half = w32 / 2;
-  long long gx = (half + kThreads - 1) / kThreads;
-  if (gx < 1) gx = 1;
-  if (gx > kMaxGridX) gx = kMaxGridX;
-  dim3 grid((unsigned)gx, (unsigned)batch);
-  split16_hist_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, w32, (const int32_t*)n, bf16, (uint32_t*)exp_out,
-      (uint32_t*)raw_out, (unsigned int*)hist, (unsigned int*)csum);
-  return (int)cudaGetLastError();
+  return launch<true>((const uint32_t*)in, batch, w32, (const int32_t*)n, bf16,
+                      (uint32_t*)exp_out, (uint32_t*)raw_out,
+                      (unsigned int*)hist, (unsigned int*)csum,
+                      (cudaStream_t)stream);
 }
 
 // As dgt_split16_hist without n, hist and csum: raw bytes past any count
@@ -136,15 +214,9 @@ extern "C" int dgt_split16_hist(const void* in, long long batch, long long w32,
 extern "C" int dgt_split16(const void* in, long long batch, long long w32,
                            int bf16, void* exp_out, void* raw_out,
                            void* stream) {
-  const long long half = w32 / 2;
-  long long gx = (half + kThreads - 1) / kThreads;
-  if (gx < 1) gx = 1;
-  if (gx > kMaxGridX) gx = kMaxGridX;
-  dim3 grid((unsigned)gx, (unsigned)batch);
-  split16_hist_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, w32, nullptr, bf16, (uint32_t*)exp_out,
-      (uint32_t*)raw_out, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  return launch<false>((const uint32_t*)in, batch, w32, nullptr, bf16,
+                       (uint32_t*)exp_out, (uint32_t*)raw_out, nullptr, nullptr,
+                       (cudaStream_t)stream);
 }
 
 extern "C" const char* dgt_error_string(int err) {

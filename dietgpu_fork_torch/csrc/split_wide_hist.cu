@@ -34,71 +34,34 @@
 // 16 B chunks a thread; each thread issues all of its tile's loads before
 // its first store, indices inside a tile are 32-bit from one int64 base,
 // and a chunk's tail mask is taken once (a branch only the chunk that holds
-// the count takes). Exponent bytes of real data fall in a few bins (fp64's
-// plane 0, the exponent's top 8 bits, in 1-2), so one shared counter a bin
-// would take every lane's atomic on one address. Each plane instead has
-// lane-private sub-histograms laid out [bin][lane], 32 KiB (dynamic shared
-// memory): lane l only touches bank l, so a warp's 32 increments go in one
-// pass whatever the bytes are; at its end a CTA adds its counts (each bin's
-// 32 lanes) to global memory. A one-off sweep on an H100 chose 256 threads
-// and 8 chunks a thread; warp-aggregated counting (__match_any_sync, one
-// atomic a distinct bin a warp) was slower than the lane columns on fp64.
+// the count takes). The histograms are lane-private sub-histograms, two
+// bins a word (csrc/split_hist.cuh, shared with K1): 16 KiB of shared
+// memory a plane, so a warp's increments go in one pass whatever the bytes
+// are; at its end a CTA adds its counts to global memory. A one-off sweep
+// on an H100 chose 256 threads and 8 chunks a thread; warp-aggregated
+// counting (__match_any_sync, one atomic a distinct bin a warp) was slower
+// than the lane columns on fp64.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "split_hist.cuh"
+
 namespace {
+
+using split_hist::byte_mask;
+using split_hist::count_byte;
+using split_hist::kFull;
 
 constexpr int kSplitThreads = 256;
 constexpr int kSplitUnits = 8;  // 16 B chunks a thread a tile
 constexpr int kTileChunks = kSplitThreads * kSplitUnits;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// The shared histogram words of a CTA: kPlanes * 256 bins of 32 lanes.
-template <int kPlanes>
-__host__ __device__ constexpr int hist_words() {
-  return kPlanes * 256 * 32;
-}
-
-__device__ __forceinline__ uint32_t byte_mask(int nbytes) {
-  return nbytes >= 4 ? 0xFFFFFFFFu
-                     : (nbytes <= 0 ? 0u : (1u << (8 * nbytes)) - 1u);
-}
+static_assert(4 * kTileChunks <= split_hist::kMaxTileFloats,
+              "a tile's counts fit a bin's 16 bits");
 
 __device__ __forceinline__ uint32_t pack4(uint32_t b0, uint32_t b1,
                                           uint32_t b2, uint32_t b3) {
   return b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
-}
-
-// One count of plane p's byte value bin, where live, in this lane's column.
-__device__ __forceinline__ void count_byte(uint32_t* sh, int p, uint32_t bin,
-                                           bool live) {
-  if (live) atomicAdd(&sh[(p * 256 + bin) * 32 + (threadIdx.x & 31)], 1u);
-}
-
-// The CTA's counts held in shared memory, added to global memory: the
-// checksum byte and each bin's 32 lanes. Every thread of the CTA calls it.
-template <int kPlanes>
-__device__ __forceinline__ void flush(const uint32_t* sh_hist, uint32_t* sh_xor,
-                                      uint32_t x, int64_t row, int64_t batch,
-                                      unsigned int* hist, unsigned int* csum) {
-  for (int o = 16; o > 0; o >>= 1) x ^= __shfl_xor_sync(kFull, x, o);
-  if ((threadIdx.x & 31) == 0) sh_xor[threadIdx.x >> 5] = x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t t = 0;
-    for (int w = 0; w < kSplitThreads / 32; ++w) t ^= sh_xor[w];
-    t ^= t >> 16;
-    t ^= t >> 8;
-    t &= 0xFFu;
-    if (t) atomicXor(&csum[row], t);
-  }
-  for (int i = threadIdx.x; i < kPlanes * 256; i += kSplitThreads) {
-    // bin i's 32 lanes, each thread starting at another bank
-    uint32_t v = 0;
-    for (int l = 0; l < 32; ++l) v += sh_hist[i * 32 + ((l + i) & 31)];
-    if (v) atomicAdd(&hist[((i / 256) * batch + row) * 256 + i % 256], v);
-  }
 }
 
 // kWide64: fp64 (two planes); else fp32 (one plane). kHist: the histograms,
@@ -115,13 +78,11 @@ split_wide_hist_kernel(const uint32_t* __restrict__ in, int64_t w32,
                        unsigned int* __restrict__ csum) {
   constexpr int kPlanes = kWide64 ? 2 : 1;
   constexpr int kPer = kWide64 ? 2 : 4;  // floats a chunk
-  extern __shared__ __align__(16) uint32_t sh_hist[];
+  __shared__ __align__(16) uint32_t sh_hist[kHist ? split_hist::words<kPlanes>() : 4];
   __shared__ uint32_t sh_xor[kSplitThreads / 32];
   const int lane = threadIdx.x & 31;
   if constexpr (kHist) {
-    for (int i = threadIdx.x; i < hist_words<kPlanes>() / 4; i += kSplitThreads) {
-      reinterpret_cast<uint4*>(sh_hist)[i] = make_uint4(0u, 0u, 0u, 0u);
-    }
+    split_hist::zero<kSplitThreads, kPlanes>(sh_hist);
     __syncthreads();
   }
 
@@ -214,23 +175,20 @@ split_wide_hist_kernel(const uint32_t* __restrict__ in, int64_t w32,
       }
     }
   }
-  if constexpr (kHist) flush<kPlanes>(sh_hist, sh_xor, x, b, batch, hist, csum);
+  if constexpr (kHist) {
+    split_hist::flush<kSplitThreads, kPlanes>(sh_hist, sh_xor, x, b, batch, hist, csum);
+  }
 }
 
-// One CTA a tile. fp64's histograms take 64 KiB of dynamic shared memory,
-// past the 48 KiB a launch may take without asking.
+// One CTA a tile.
 template <bool kWide64, bool kHist>
 int launch(const uint32_t* x, long long batch, long long w32, const int32_t* n,
            uint32_t* exp_out, uint32_t* sec1_out, uint32_t* sec2_out,
            unsigned int* hist, unsigned int* csum, cudaStream_t s) {
-  constexpr int kSmem = kHist ? 4 * hist_words<kWide64 ? 2 : 1>() : 0;
   const long long tpr = (w32 / 4 + kTileChunks - 1) / kTileChunks;  // tiles a row
   if (tpr == 0) return (int)cudaSuccess;
-  auto kernel = split_wide_hist_kernel<kWide64, kHist>;
-  if (kSmem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  }
-  kernel<<<dim3((unsigned)tpr, (unsigned)batch), kSplitThreads, kSmem, s>>>(
+  split_wide_hist_kernel<kWide64, kHist><<<dim3((unsigned)tpr, (unsigned)batch),
+                                           kSplitThreads, 0, s>>>(
       x, w32, batch, n, exp_out, sec1_out, sec2_out, hist, csum);
   return (int)cudaGetLastError();
 }

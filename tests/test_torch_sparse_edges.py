@@ -1,7 +1,10 @@
-"""K15's, K10's and K11's edge inputs, plain versions on the CPU, exact: the
-inputs ``chip_smoke.py`` holds the kernels to on the card (its
-``sparse_edge_inputs``). ``word_ranks_plain`` against a NumPy oracle that
-unpacks the bitmap bit by bit; ``compact_by_bitmap_plain`` and
+"""K9's, K15's, K10's and K11's edge inputs, plain versions on the CPU,
+exact: the inputs ``chip_smoke.py`` holds the kernels to on the card (its
+``sparse_edge_inputs``). ``pack_bitmap_plain`` against a NumPy
+``packbits`` oracle and, in interpret mode, the JAX package's
+``pack_bitmap{16,32,64}_tpu`` with the tail mask of its
+``models/sparse.py:224-232``; ``word_ranks_plain`` against a NumPy oracle
+that unpacks the bitmap bit by bit; ``compact_by_bitmap_plain`` and
 ``expand_by_bitmap_plain`` against the JAX package's ``compact_by_bitmap``
 / ``expand_by_bitmap`` (+ ``mask_packed_bytes``) in interpret mode, on the
 aligned case and on the ragged case cut to its first four members (each
@@ -16,10 +19,11 @@ import torch
 
 import chip_smoke
 from dietgpu_fork_tpu.ops.checksum import mask_packed_bytes
+from dietgpu_fork_tpu.ops.pallas import bitmap_pack as JBP
 from dietgpu_fork_tpu.ops.pallas import sparse_stream as JSS
 from dietgpu_fork_torch.core.constants import FLOAT_WORD_SIZE, FloatType
 from dietgpu_fork_torch.core.interop import rows_to_numpy
-from dietgpu_fork_torch.ops.bitmap_pack import pack_bitmap_plain
+from dietgpu_fork_torch.ops.bitmap_pack import pack_bitmap, pack_bitmap_plain
 from dietgpu_fork_torch.ops.sparse_stream import (
     compact_by_bitmap_plain,
     expand_by_bitmap_plain,
@@ -30,6 +34,9 @@ from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TYPES = [FloatType.BFLOAT16, FloatType.FLOAT32, FloatType.FLOAT64]
 _PAIR = {FloatType.BFLOAT16: 0, FloatType.FLOAT32: 1, FloatType.FLOAT64: 2}
+_JAX_PACK = {FloatType.BFLOAT16: JBP.pack_bitmap16_tpu,
+             FloatType.FLOAT32: JBP.pack_bitmap32_tpu,
+             FloatType.FLOAT64: JBP.pack_bitmap64_tpu}
 
 
 def _bits(bm32: torch.Tensor) -> np.ndarray:
@@ -55,6 +62,23 @@ def _words(items: np.ndarray) -> np.ndarray:
 def _items(rows32: torch.Tensor, ft) -> np.ndarray:
     dt = {2: np.uint16, 4: np.uint32, 8: np.uint64}[FLOAT_WORD_SIZE[ft]]
     return np.ascontiguousarray(rows_to_numpy(rows32)).view(dt)
+
+
+@pytest.mark.parametrize("ft", TYPES, ids=[t.name for t in TYPES])
+@pytest.mark.parametrize("case", chip_smoke.SPARSE_EDGE_CASES)
+def test_pack_bitmap_plain_equals_oracle(case, ft):
+    """Each float's nonzero bit below n, MSB first per byte (NumPy
+    ``packbits``), zero up to the row's bitmap words."""
+    data32, n, _, _, _ = chip_smoke.sparse_edge_inputs(case, ft, "cpu")
+    got = pack_bitmap_plain(data32, n, ft)
+    items = _items(data32, ft)
+    B, s_cap = items.shape
+    bits = np.zeros((B, 32 * got.shape[1]), bool)
+    bits[:, :s_cap] = (items != 0) & (np.arange(s_cap)[None] < n.numpy()[:, None])
+    want = np.packbits(bits, axis=1, bitorder="big").view(np.uint32)
+    assert np.array_equal(rows_to_numpy(got), want)
+    # the dispatching entry takes the plain version for CPU tensors
+    assert torch.equal(pack_bitmap(data32, n, ft), got)
 
 
 @pytest.mark.parametrize("ft", TYPES, ids=[t.name for t in TYPES])
@@ -104,6 +128,31 @@ def _jax_pair(case, ft):
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setenv("DIETTPU_INTERPRET", "1")
+
+
+def _jax_tail_mask(jbm, n):
+    """The JAX package's models/sparse.py:224-232: the bits of floats at or
+    past n cleared from MSB-first bitmap words."""
+    wpos = jnp.arange(jbm.shape[1], dtype=jnp.int32)[None, :]
+    r = jnp.clip(jnp.asarray(n, jnp.int32)[:, None] - wpos * 32, 0, 32)
+    fb = (r >> 3).astype(jnp.uint32)
+    full = jnp.where(fb >= 4, jnp.uint32(0xFFFFFFFF),
+                     (jnp.uint32(1) << (fb * 8)) - 1)
+    part = ((jnp.uint32(0xFF) << (jnp.uint32(8) - (r & 7).astype(jnp.uint32)))
+            & jnp.uint32(0xFF)) << (fb * 8)
+    return np.asarray(jbm & (full | jnp.where(r < 32, part, jnp.uint32(0))))
+
+
+@pytest.mark.parametrize("ft", TYPES, ids=[t.name for t in TYPES])
+@pytest.mark.parametrize("case", ["ragged", "aligned"])
+def test_pack_bitmap_plain_equals_jax(interpret, case, ft):
+    data32, n, bm32, _, _, _ = _jax_pair(case, ft)
+    s_cap = 4 * data32.shape[1] // FLOAT_WORD_SIZE[ft]
+    jbm = _JAX_PACK[ft](jnp.asarray(rows_to_numpy(data32)))[:, : -(-s_cap // 32)]
+    jbm = _jax_tail_mask(jbm, n.numpy())
+    got = rows_to_numpy(bm32)
+    assert np.array_equal(got[:, : jbm.shape[1]], jbm)
+    assert not got[:, jbm.shape[1]:].any()
 
 
 @pytest.mark.parametrize("ft", TYPES, ids=[t.name for t in TYPES])
