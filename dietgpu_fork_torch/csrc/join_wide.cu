@@ -1,5 +1,6 @@
-// K7: fp32 and fp64 float join, the inverse of K5; one template for both.
-// K13: the 16-bit float join, the inverse of K1's split.
+// K7: fp32 and fp64 float join, the inverse of K5. K13: the 16-bit float
+// join, the inverse of K1's split. One template serves the three widths,
+// each in two modes.
 //
 // K7 replaces the JAX package's ops/pallas/float_split_fused.py
 // ::_join32_kernel and ::_join64_kernel (entry join_packed_tpu). Contract:
@@ -7,55 +8,69 @@
 // ::join_wide_at_plain (archive mode), the JAX package's portable
 // join_packed.
 //
-// K13 (dgt_join16) replaces ::_join16_kernel (entry join_packed_tpu, the
-// 16-bit arm, call float_split_fused.py:793), the second pass of the
-// two-pass 16-bit decode. Contract: ops/float_split.py::join16_rows_plain,
-// the 16-bit join_packed. Exponent word e and raw word r of a group of 4
-// floats give out words (r0 | e0 << 8 | r1 << 16 | e1 << 24) and the same of
-// bytes 2 and 3, each 16-bit half rotated right by 1 for bf16. Where rows
-// are 16 B aligned a thread takes 4 groups: two 16 B loads, two 16 B
-// stores; else one group, 4 B loads and one 8 B store. Bound: device
-// memory, 2 B read and 2 B written per float.
+// K13 replaces ::_join16_kernel (entry join_packed_tpu, the 16-bit arm,
+// call float_split_fused.py:793), the second pass of the two-pass 16-bit
+// decode. Contract: ops/float_split.py::join16_rows_plain (tensor mode) and
+// ::join16_at_plain (archive mode), the 16-bit join_packed.
 //
-// K7 joins, per float (4 floats a plane word):
+// The join, per float (4 floats a plane word):
+//   16-bit: the exponent-plane byte e and the raw byte r: out = r | e << 8,
+//         two floats a word, each 16-bit half rotated right by 1 for bf16
+//         (fp16 is not rotated);
 //   fp32: the exponent-plane byte e, the low half of a sec1 word (2 floats
 //         a word) and a sec2 byte t (4 a word): r = low | t << 16 | e << 24,
 //         out = rotr(r, 1);
 //   fp64: exp0 byte e0, exp1 byte e1, sec1 word v_lo (one a float), the
 //         low half of a sec2 word (2 a word): v_hi = half | e1 << 16 |
 //         e0 << 24, and the (v_lo, v_hi) pair rotated right by 1 across it.
-// It takes the sections in one of two modes: as [B, >= kE] tensors with
-// row strides (tensor mode: ops.float_split.join_wide, every float
-// joined), or from the archive in place (archive mode, the two-pass
-// decode: join_wide_at), where member b's sections start at words
-// s1_off[b] and s2_off[b] of the archive at any 4 B phase, words outside
-// the archive read as its end words (clamped), and only the floats below
-// count[b] are read and joined: the rest are written as zeros. The count
-// is required there, since the bytes past a member's sections are the next
-// section or the ANS archive; it also zeroes a failed member (count 0).
+// It takes the raw sections (16-bit: the one raw section, as sec1) in one
+// of two modes: as [B, >= kE] tensors with row strides (tensor mode:
+// ops.float_split.join_wide and join16_rows, every float joined), or from
+// the archive in place (archive mode, the two-pass decode: join_wide_at
+// and join16_at), where member b's sections start at words s1_off[b] and
+// s2_off[b] of the archive at any 4 B phase, words outside the archive
+// read as its end words (clamped), and only the floats below count[b] are
+// read and joined: the rest are written as zeros. The count is required
+// there, since the bytes past a member's sections are the next section or
+// the ANS archive; it also zeroes a failed member (count 0), so the decode
+// selects nothing after the join.
 //
-// Bound on the card: device memory, a pure streaming interleave: fp32 4 B
-// read (below the count) and 4 B written per float, fp64 8 and 8. Design: a
-// CTA of kJoinThreads owns a tile of kJoinTileBytes of output. It first
-// issues every load of the tile, each input span (planes, sec1, sec2 below
-// the count) entering shared memory at its own 16 B phase with cp.async,
-// the partial chunks at the span's ends word by word and clamped; then
-// each thread writes 16 B chunks of output, consecutive lanes consecutive
-// chunks (512 B a warp store: an fp64 chunk is 2 floats, so each lane
-// reads its float pair's plane word and no store leaves a hole). Many
-// small CTAs keep the bytes in flight; indices inside a tile are 32-bit,
-// from one int64 base a tile. Of CTAs of 128 or 256 threads and tiles of
-// 8, 16 or 32 KiB (a one-off sweep on an H100), 128 threads and 8 KiB took
-// the least time in fp32 and fp64, with every float joined and with half
-// of them.
+// Bound on the card: device memory, a pure streaming interleave: per float
+// 2 B read (below the count) and 2 B written for 16-bit types, 4 and 4 for
+// fp32, 8 and 8 for fp64. Design: a CTA of kJoinThreads owns a tile of
+// kJoinTileBytes of output (4096 16-bit floats, 2048 fp32, 1024 fp64). It
+// first issues every load of the tile, each input span (planes, sections
+// below the count) entering shared memory at its own 16 B phase with
+// cp.async, the partial chunks at the span's ends word by word and
+// clamped; then each thread writes 16 B chunks of output, consecutive
+// lanes consecutive chunks (512 B a warp store: a 16-bit chunk is 8 floats,
+// two plane and two raw words; an fp64 chunk 2 floats, so each lane reads
+// its float pair's plane word and no store leaves a hole). Many small CTAs
+// keep the bytes in flight; indices inside a tile are 32-bit, from one
+// int64 base a tile. Of CTAs of 128 or 256 threads and tiles of 8, 16 or
+// 32 KiB (a one-off sweep on an H100), 128 threads and 8 KiB took the
+// least time in fp32 and fp64, with every float joined and with half of
+// them; K13 takes the same shape.
+//
+// K13's traps, and what the design does about them:
+// - A raw section starts at any 4 B phase: classic v1 sections sit at
+//   base + 8 words, v2 ones at base + 128, and the base is any word. A
+//   16 B cp.async needs a 16 B aligned source, so each span is staged at
+//   its own phase (stage_span) and read back from that phase.
+// - A count that ends inside an output word: the word's high half (the
+//   float at the count) is written as zero, and so is every later float.
+// - A failed member (count 0) stages nothing and writes zeros; a header
+//   whose n runs past the row is cut to the row's floats, and every
+//   archive word read is clamped to the archive.
+// - An output row of 2E words with E odd starts 8 B past a 16 B boundary
+//   for every odd member and ends half way into a 16 B chunk: such a row
+//   is written with 8 B stores, its last chunk only in its first half.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // K13
-constexpr int kMaxGridX = 1024;
 constexpr int kJoinThreads = 128;
 constexpr int kJoinTileBytes = 8192;  // output bytes a tile
 constexpr int64_t kNoClamp = INT64_MAX;
@@ -103,13 +118,28 @@ __device__ __forceinline__ int stage_span(uint32_t* buf,
   return ph;
 }
 
+// The two output words of a group of 4 16-bit floats: exponent-plane word
+// e and raw word r, bytes 0-1 and 2-3.
+__device__ __forceinline__ uint2 join16_group(uint32_t e, uint32_t r,
+                                              int bf16) {
+  uint32_t we = byte_of(r, 0) | (byte_of(e, 0) << 8) | (byte_of(r, 1) << 16) |
+                (byte_of(e, 1) << 24);
+  uint32_t wo = byte_of(r, 2) | (byte_of(e, 2) << 8) | (byte_of(r, 3) << 16) |
+                (byte_of(e, 3) << 24);
+  if (bf16) {
+    we = ((we >> 1) & 0x7FFF7FFFu) | ((we << 15) & 0x80008000u);
+    wo = ((wo >> 1) & 0x7FFF7FFFu) | ((wo << 15) & 0x80008000u);
+  }
+  return make_uint2(we, wo);
+}
+
 struct JoinArgs {
   const uint32_t* exp0;
   int64_t e0_stride;
   const uint32_t* exp1;  // fp64
   int64_t e1_stride;
   const uint32_t* sec1;  // the archive in archive mode
-  const uint32_t* sec2;
+  const uint32_t* sec2;  // fp32, fp64
   int64_t nwords;  // sec1 and sec2 words that may be read (the clamp)
   const int64_t* s1_off;  // [B] archive mode, else null (row strides)
   const int64_t* s2_off;
@@ -117,19 +147,21 @@ struct JoinArgs {
   int64_t s2_stride;
   const int64_t* count;  // [B] floats to join; null: every float
   int64_t groups;  // E, exponent-plane words a row
+  int bf16;  // 16-bit: rotate each half
   uint32_t* out;
 };
 
-// kWide64: fp64 (two planes); else fp32. One CTA a tile of a row.
-template <bool kWide64>
-__global__ void __launch_bounds__(kJoinThreads) join_wide_kernel(JoinArgs a) {
-  constexpr int kWs = kWide64 ? 8 : 4;
+// kWs: the float's bytes, 2 (K13), 4 or 8 (K7). One CTA a tile of a row.
+template <int kWs>
+__global__ void __launch_bounds__(kJoinThreads) join_kernel(JoinArgs a) {
+  constexpr bool k16 = kWs == 2, k64 = kWs == 8;
   constexpr int kFloats = kJoinTileBytes / kWs;  // floats a tile
   constexpr int kPer = 16 / kWs;  // floats a 16 B output chunk
-  constexpr int kS1 = kWide64 ? kFloats : kFloats / 2;  // sec1 words a tile
-  constexpr int kS2 = kWide64 ? kFloats / 2 : kFloats / 4;
+  // sec1 (16-bit: raw) and sec2 words a tile
+  constexpr int kS1 = k16 ? kFloats / 4 : (k64 ? kFloats : kFloats / 2);
+  constexpr int kS2 = k16 ? 0 : (k64 ? kFloats / 2 : kFloats / 4);
   __shared__ __align__(16) uint32_t e0[kFloats / 4 + 4];
-  __shared__ __align__(16) uint32_t e1[kWide64 ? kFloats / 4 + 4 : 4];
+  __shared__ __align__(16) uint32_t e1[k64 ? kFloats / 4 + 4 : 4];
   __shared__ __align__(16) uint32_t s1[kS1 + 4];
   __shared__ __align__(16) uint32_t s2[kS2 + 4];
 
@@ -147,10 +179,10 @@ __global__ void __launch_bounds__(kJoinThreads) join_wide_kernel(JoinArgs a) {
   if (lim > 0) {  // uniform over the CTA
     const int pw = (lim + 3) / 4;
     p0 = stage_span(e0, a.exp0, kNoClamp, b * a.e0_stride + f0 / 4, pw);
-    if constexpr (kWide64) {
+    if constexpr (k16) {
+      q1 = stage_span(s1, a.sec1, a.nwords, o1 + f0 / 4, pw);
+    } else if constexpr (k64) {
       p1 = stage_span(e1, a.exp1, kNoClamp, b * a.e1_stride + f0 / 4, pw);
-    }
-    if constexpr (kWide64) {
       q1 = stage_span(s1, a.sec1, a.nwords, o1 + f0, lim);
       q2 = stage_span(s2, a.sec2, a.nwords, o2 + f0 / 2, (lim + 1) / 2);
     } else {
@@ -162,11 +194,26 @@ __global__ void __launch_bounds__(kJoinThreads) join_wide_kernel(JoinArgs a) {
   __syncthreads();
 
   uint32_t* out = a.out + b * (rowf * kWs / 4) + f0 * kWs / 4;
+  // 16-bit rows of 2E words, E odd: 8 B aligned only (uniform over the CTA)
+  const bool whole16 = !k16 || (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   for (int c = threadIdx.x; c * kPer < tf; c += kJoinThreads) {
     const int f = c * kPer;  // the chunk's first float in the tile
     uint32_t w[4] = {0u, 0u, 0u, 0u};
     if (f < lim) {
-      if constexpr (!kWide64) {
+      if constexpr (k16) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint2 v = join16_group(e0[p0 + 2 * c + h], s1[q1 + 2 * c + h],
+                                       a.bf16);
+          w[2 * h] = v.x;
+          w[2 * h + 1] = v.y;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {  // word k holds floats f + 2k, + 1
+          w[k] &= (f + 2 * k < lim ? 0x0000FFFFu : 0u) |
+                  (f + 2 * k + 1 < lim ? 0xFFFF0000u : 0u);
+        }
+      } else if constexpr (!k64) {
         const uint32_t e = e0[p0 + c];
         const uint32_t lo = s1[q1 + 2 * c], hi = s1[q1 + 2 * c + 1];
         const uint32_t t = s2[q2 + c];
@@ -194,111 +241,52 @@ __global__ void __launch_bounds__(kJoinThreads) join_wide_kernel(JoinArgs a) {
         }
       }
     }
-    *reinterpret_cast<uint4*>(out + 4 * c) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-}
-
-__device__ __forceinline__ uint2 join16_group(uint32_t e, uint32_t r,
-                                              int bf16) {
-  uint32_t we = byte_of(r, 0) | (byte_of(e, 0) << 8) | (byte_of(r, 1) << 16) |
-                (byte_of(e, 1) << 24);
-  uint32_t wo = byte_of(r, 2) | (byte_of(e, 2) << 8) | (byte_of(r, 3) << 16) |
-                (byte_of(e, 3) << 24);
-  if (bf16) {
-    we = ((we >> 1) & 0x7FFF7FFFu) | ((we << 15) & 0x80008000u);
-    wo = ((wo >> 1) & 0x7FFF7FFFu) | ((wo << 15) & 0x80008000u);
-  }
-  return make_uint2(we, wo);
-}
-
-// kVec: 4 groups a thread with 16 B accesses (rows and strides 16 B
-// aligned, groups % 4 == 0); else one group a thread.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-join16_kernel(const uint32_t* __restrict__ exp, int64_t e_stride,
-              const uint32_t* __restrict__ raw, int64_t r_stride,
-              int64_t groups, int bf16, uint32_t* __restrict__ out) {
-  const int64_t b = blockIdx.y;
-  const int64_t per = kVec ? 4 : 1;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       j < groups / per; j += (int64_t)gridDim.x * blockDim.x) {
-    if constexpr (kVec) {
-      const uint4 e = *reinterpret_cast<const uint4*>(exp + b * e_stride + 4 * j);
-      const uint4 r = *reinterpret_cast<const uint4*>(raw + b * r_stride + 4 * j);
-      const uint2 w0 = join16_group(e.x, r.x, bf16);
-      const uint2 w1 = join16_group(e.y, r.y, bf16);
-      const uint2 w2 = join16_group(e.z, r.z, bf16);
-      const uint2 w3 = join16_group(e.w, r.w, bf16);
-      uint4* o = reinterpret_cast<uint4*>(out + b * 2 * groups + 8 * j);
-      o[0] = make_uint4(w0.x, w0.y, w1.x, w1.y);
-      o[1] = make_uint4(w2.x, w2.y, w3.x, w3.y);
-    } else {
-      *reinterpret_cast<uint2*>(out + b * 2 * groups + 2 * j) =
-          join16_group(exp[b * e_stride + j], raw[b * r_stride + j], bf16);
+    uint32_t* o = out + 4 * c;
+    if (whole16 && f + kPer <= tf) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {  // 16-bit only: 8 B stores, the second half where in the row
+      *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+      if (f + kPer <= tf) *reinterpret_cast<uint2*>(o + 2) = make_uint2(w[2], w[3]);
     }
   }
 }
 
 }  // namespace
 
-// K7. exp0, exp1 (fp64 only; may equal exp0 for fp32): u32 rows of
+// K7 and K13. ws: the float's bytes, 2 (K13; bf16 rotates each half), 4 or
+// 8 (K7). exp0, exp1 (fp64 only; may equal exp0 otherwise): u32 rows of
 // e0_stride and e1_stride words, groups (E) used. Tensor mode (s1_off and
-// s2_off null): sec1 and sec2 are u32 rows of s1_stride and s2_stride
-// words, 2E and E (fp32) or 4E and 2E (fp64) used, and count is null;
-// archive mode: sec1 == sec2 is the archive of nwords words, member b's
-// sections start at words s1_off[b] and s2_off[b] (int64), and count[b]
-// (int64) floats are joined, the rest written as zeros. Writes out
-// u32[B, 4E] (fp32) or [B, 8E] (fp64), 16 B aligned. Returns
-// cudaGetLastError().
-extern "C" int dgt_join_wide(const void* exp0, long long e0_stride,
-                             const void* exp1, long long e1_stride,
-                             const void* sec1, const void* sec2,
-                             long long nwords, const void* s1_off,
-                             const void* s2_off, long long s1_stride,
-                             long long s2_stride, const void* count,
-                             long long batch, long long groups, int fp64,
-                             void* out, void* stream) {
+// s2_off null, count null): sec1 and sec2 (fp32, fp64; may equal sec1
+// otherwise) are u32 rows of s1_stride and s2_stride words, E (16-bit), 2E
+// and E (fp32) or 4E and 2E (fp64) used; archive mode: sec1 == sec2 is the
+// archive of nwords words, member b's sections start at words s1_off[b]
+// and s2_off[b] (int64; s2_off may equal s1_off for 16-bit types), and
+// count[b] (int64) floats are joined, the rest written as zeros. Writes out
+// u32[B, ws * E], 8 B aligned (16 B for fp32 and fp64). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another ws.
+extern "C" int dgt_join(const void* exp0, long long e0_stride,
+                        const void* exp1, long long e1_stride,
+                        const void* sec1, const void* sec2, long long nwords,
+                        const void* s1_off, const void* s2_off,
+                        long long s1_stride, long long s2_stride,
+                        const void* count, long long batch, long long groups,
+                        int ws, int bf16, void* out, void* stream) {
+  if (ws != 2 && ws != 4 && ws != 8) return (int)cudaErrorInvalidValue;
   JoinArgs a{(const uint32_t*)exp0, e0_stride, (const uint32_t*)exp1,
              e1_stride, (const uint32_t*)sec1, (const uint32_t*)sec2,
              nwords, (const int64_t*)s1_off, (const int64_t*)s2_off,
-             s1_stride, s2_stride, (const int64_t*)count, groups,
+             s1_stride, s2_stride, (const int64_t*)count, groups, bf16,
              (uint32_t*)out};
-  const long long tile_floats = kJoinTileBytes / (fp64 ? 8 : 4);
+  const long long tile_floats = kJoinTileBytes / ws;
   dim3 grid((unsigned)((4 * groups + tile_floats - 1) / tile_floats),
             (unsigned)batch);
   cudaStream_t s = (cudaStream_t)stream;
-  if (fp64) {
-    join_wide_kernel<true><<<grid, kJoinThreads, 0, s>>>(a);
+  if (ws == 2) {
+    join_kernel<2><<<grid, kJoinThreads, 0, s>>>(a);
+  } else if (ws == 4) {
+    join_kernel<4><<<grid, kJoinThreads, 0, s>>>(a);
   } else {
-    join_wide_kernel<false><<<grid, kJoinThreads, 0, s>>>(a);
-  }
-  return (int)cudaGetLastError();
-}
-
-// exp: u32 rows of e_stride words, groups used; raw: u32 rows of r_stride
-// words, groups used. Writes out u32[B, 2 * groups], 8 B aligned. Returns
-// cudaGetLastError().
-extern "C" int dgt_join16(const void* exp, long long e_stride, const void* raw,
-                          long long r_stride, long long batch,
-                          long long groups, int bf16, void* out,
-                          void* stream) {
-  const bool vec = groups % 4 == 0 && e_stride % 4 == 0 && r_stride % 4 == 0 &&
-                   (uintptr_t)exp % 16 == 0 && (uintptr_t)raw % 16 == 0 &&
-                   (uintptr_t)out % 16 == 0;
-  const long long work = vec ? groups / 4 : groups;
-  long long gx = (work + kThreads - 1) / kThreads;
-  if (gx < 1) gx = 1;
-  if (gx > kMaxGridX) gx = kMaxGridX;
-  dim3 grid((unsigned)gx, (unsigned)batch);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (vec) {
-    join16_kernel<true><<<grid, kThreads, 0, s>>>(
-        (const uint32_t*)exp, e_stride, (const uint32_t*)raw, r_stride, groups,
-        bf16, (uint32_t*)out);
-  } else {
-    join16_kernel<false><<<grid, kThreads, 0, s>>>(
-        (const uint32_t*)exp, e_stride, (const uint32_t*)raw, r_stride, groups,
-        bf16, (uint32_t*)out);
+    join_kernel<8><<<grid, kJoinThreads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

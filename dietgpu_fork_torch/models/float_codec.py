@@ -13,12 +13,13 @@ A port of the JAX package's ``models/float_codec.py``:
   decodes and joins into float words, reading the streams, the states and
   the raw section(s) from the archive in place (the JAX package's fused
   branches): no K3 merge;
-* decompress, two-pass (the default for fp32 and fp64): float header parse
-  -> per plane, ANS parse, validation and a K6 decode to bytes (in place)
-  -> K7 joins the planes with sec1 and sec2 read from the archive in place,
-  below each member's count (0 for a failed member); 16-bit types
-  (``fused=False``) stage their raw section with one K3 merge and join it
-  with K13 (the JAX package's two-pass branch, which stages both);
+* decompress, two-pass (the default for fp32 and fp64, ``fused=False``
+  for 16-bit types): float header parse -> per plane, ANS parse,
+  validation and a K6 decode to bytes (in place) -> K7 (fp32, fp64) or
+  K13 (16-bit) joins the planes with the raw sections read from the
+  archive in place, below each member's count (0 for a failed member):
+  no staging merge and no select, where the JAX package's two-pass branch
+  stages the sections with a merge and selects after the join;
 * verify_checksum folds the XOR of the decoded bytes in plain torch
   (the JAX package's ``float_codec.py:453-457``).
 
@@ -56,8 +57,8 @@ from ..ops.bitmap_pack import floats_capacity
 from ..ops.bitops import from_u32, to_i32, to_u32
 from ..ops.checksum import checksum_packed
 from ..ops.float_split import (
-    join16_rows,
-    join16_rows_plain,
+    join16_at,
+    join16_at_plain,
     join_wide_at,
     join_wide_at_plain,
     split16_hist,
@@ -331,30 +332,24 @@ def float_decompress_core(
                 plane = F.pad(plane, (0, E - plane.shape[1]))
             planes.append(plane)
             success = success & ok & (psize == n)
-        if ft not in _FLOAT16_TYPES:
-            # K7 reads the raw sections from the archive in place, below each
-            # member's count, which is 0 for a failed member: no staging, no
-            # select
+        # K7 or K13 reads the raw sections from the archive in place, below
+        # each member's count, which is 0 for a failed member: no staging,
+        # no select
+        count = torch.where(success, n, 0)
+        if ft in _FLOAT16_TYPES:
+            join16 = join16_at_plain if plain else join16_at
+            words32 = join16(comp32, planes[0], abs_base + o_s1, count, ft)
+            # 2E words, cut to ceil(out_floats / 2)
+            words32 = words32[:, : -(-out_floats // 2)].contiguous()
+        else:
             join = join_wide_at_plain if plain else join_wide_at
             words32 = join(comp32, planes, abs_base + o_s1, abs_base + o_s2,
-                           torch.where(success, n, 0), ft)
-            return (words32, success, n, csum_arch,
-                    _decoded_checksum(words32, n, ft, verify_checksum))
-        # the 16-bit raw section staged by one K3 merge, zero padded, each
-        # row at least as wide as the join reads
-        W = max(_section_word_counts(out_floats, ft)[0], E)
-        merge = runs_merge_plain if plain else runs_merge
-        raw32 = merge(
-            [comp32.reshape(-1)], b_ar * W,
-            torch.zeros(B, dtype=torch.int32, device=dev), abs_base + o_s1,
-            s1w.clamp(max=W), B * W,
-        ).reshape(B, W)
-        join16 = join16_rows_plain if plain else join16_rows
-        words32 = join16(planes[0], raw32, ft == FloatType.BFLOAT16)
-        words32 = words32[:, : -(-out_floats // 2)]
+                           count, ft)
+        return (words32, success, n, csum_arch,
+                _decoded_checksum(words32, n, ft, verify_checksum))
 
-    # planes, sections and the fused decodes are zero past n, so the words
-    # are too; one select zeroes failed members
+    # the fused decodes' words are zero past n; one select zeroes failed
+    # members
     words32 = torch.where(success[:, None], words32, 0)
     return (words32, success, n, csum_arch,
             _decoded_checksum(words32, n, ft, verify_checksum))

@@ -21,14 +21,15 @@ with histogram; ``split_packed`` (the split alone, K1 and K5 without
 histogram: the JAX package's ``split_packed``) keeps them, capacity-sized.
 
 ``split16_hist``, ``split_wide_hist``, ``split16``, ``split_wide``,
-``join_wide``, ``join_wide_at`` and ``join16_rows`` send CUDA tensors to
-the kernels (``csrc/split16_hist.cu``, ``csrc/split_wide_hist.cu``,
-``csrc/join_wide.cu``) and CPU tensors to their plain versions, built
-from the JAX package's ``split_packed`` + ``histogram_packed`` +
-``checksum_packed`` + ``mask_packed_bytes``, and ``join_packed``.
-``join_wide`` takes the raw sections as tensors; ``join_wide_at`` (K7's
-archive mode, the two-pass fp32/fp64 decode) reads them from the archive
-in place and joins only the floats below a per-member count.
+``join_wide``, ``join_wide_at``, ``join16_rows`` and ``join16_at`` send
+CUDA tensors to the kernels (``csrc/split16_hist.cu``,
+``csrc/split_wide_hist.cu``, ``csrc/join_wide.cu``) and CPU tensors to
+their plain versions, built from the JAX package's ``split_packed`` +
+``histogram_packed`` + ``checksum_packed`` + ``mask_packed_bytes``, and
+``join_packed``. ``join_wide`` and ``join16_rows`` take the raw sections
+as tensors; ``join_wide_at`` and ``join16_at`` (the archive modes of K7
+and K13, the two-pass decodes) read them from the archive in place and
+join only the floats below a per-member count.
 """
 
 from __future__ import annotations
@@ -306,6 +307,61 @@ def join16_rows_plain(exp, raw, bf16: bool):
     E = exp.shape[1]
     return from_u32(join16(unpack_bytes(to_u32(exp)),
                            unpack_bytes(to_u32(raw[:, :E])), bf16))
+
+
+def _check_join16_at_args(comp32, plane, r_off, count, float_type):
+    ft = FloatType(float_type)
+    if ft not in (FloatType.FLOAT16, FloatType.BFLOAT16):
+        raise ValueError(f"{ft.name} is not a 16-bit float type")
+    if comp32.dtype != torch.int32 or comp32.dim() != 2 or not comp32.is_contiguous():
+        raise TypeError("comp32 must be a contiguous 2-D torch.int32 tensor")
+    if comp32.numel() == 0:
+        raise ValueError("comp32 must not be empty")
+    if plane.dtype != torch.int32 or plane.dim() != 2 or plane.stride(1) != 1:
+        raise TypeError("plane must be a 2-D torch.int32 tensor with contiguous rows")
+    B, E = plane.shape
+    if E == 0:
+        raise ValueError("the exponent plane must not be empty")
+    for name, t in (("r_off", r_off), ("count", count)):
+        if t.dtype != torch.int64 or t.shape != (B,) or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous torch.int64 of shape [{B}]")
+    if any(t.device != comp32.device for t in (plane, r_off, count)):
+        raise ValueError("all inputs must lie on one device")
+    return ft
+
+
+def join16_at(comp32: torch.Tensor, plane: torch.Tensor, r_off: torch.Tensor,
+              count: torch.Tensor, float_type) -> torch.Tensor:
+    """K13 reading the raw section from the archive in place: the join of
+    ``join16_rows`` with member b's raw section starting at word r_off[b]
+    (int64[B]) of ``comp32.reshape(-1)``, any 4 B phase, words past the
+    archive's ends read as its end words (clamped).
+
+    plane: int32[B, E] with contiguous rows; count: int64[B] floats to
+    join; float_type: fp16 or bf16. Returns int32[B, 2E]: the joined floats
+    below count[b], zeros from it on (the high half of a word that the
+    count cuts too); nothing of a float at or past its count is read.
+    """
+    ft = _check_join16_at_args(comp32, plane, r_off, count, float_type)
+    if use_kernels(comp32):
+        return K.join16_at(comp32, plane, r_off, count, ft)
+    return join16_at_plain(comp32, plane, r_off, count, ft)
+
+
+def join16_at_plain(comp32, plane, r_off, count, float_type):
+    """Plain PyTorch version of K13 in archive mode; runs on any device:
+    gathers the raw section at capacity width with the clamp, joins, then
+    zeroes the floats at or past the count."""
+    ft = _check_join16_at_args(comp32, plane, r_off, count, float_type)
+    flat = comp32.reshape(-1)
+    B, E = plane.shape
+    idx = r_off[:, None] + torch.arange(E, dtype=torch.int64, device=flat.device)
+    raw = flat[idx.clamp(0, flat.numel() - 1)]
+    out = to_u32(join16_rows_plain(plane, raw, ft == FloatType.BFLOAT16))
+    keep = torch.arange(4 * E, dtype=torch.int64, device=flat.device) < count[:, None]
+    mask = (torch.where(keep[:, 0::2], 0xFFFF, 0)
+            | torch.where(keep[:, 1::2], 0xFFFF0000, 0))
+    return from_u32(out & mask)
 
 
 def _check_join_args(planes, sec1, sec2, ft):

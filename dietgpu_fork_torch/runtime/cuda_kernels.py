@@ -79,6 +79,7 @@ launches: Dict[str, int] = {
     "rans_decode_join32": 0,
     "rans_decode_join32_blocks": 0,
     "join16": 0,
+    "join16_at": 0,
     "split16": 0,
     "split_wide": 0,
     "chunked_lookup": 0,
@@ -170,13 +171,12 @@ def library() -> ctypes.CDLL:
         "dgt_runs_merge": [P, P, I, P, P, P, P, L, P, L, P],
         "dgt_rans_decode": [I, I, P, L, P, P, P, P, P, P, I, P, P, L, L, I, P, P],
         "dgt_split_wide_hist": [P, L, L, P, I, P, P, P, P, P, P],
-        "dgt_join_wide": [P, L, P, L, P, P, L, P, P, L, L, P, L, L, I, P, P],
+        "dgt_join": [P, L, P, L, P, P, L, P, P, L, L, P, L, L, I, I, P, P],
         "dgt_byte_hist": [P, L, L, P, P, P, P],
         "dgt_rans_encode_blocks": [P, P, P, P, L, L, I, P, P, P, P],
         "dgt_bitmap_pack": [P, L, L, L, P, L, I, P, P],
         "dgt_sparse_compact": [P, L, L, L, P, P, L, I, P, L, P],
         "dgt_sparse_expand": [P, L, L, L, P, P, L, P, I, P, L, P],
-        "dgt_join16": [P, L, P, L, L, L, I, P, P],
         "dgt_split16": [P, L, L, I, P, P, P],
         "dgt_split_wide": [P, L, L, I, P, P, P, P],
         "dgt_chunked_lookup": [P, L, L, P, L, P, P],
@@ -453,62 +453,69 @@ def split_wide(data32: torch.Tensor, float_type):
     return exp, sec1, sec2
 
 
-def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
-    """K13 launch; arguments as ``ops.float_split.join16_rows``."""
-    _cuda_only(exp, raw)
-    B, E = exp.shape
-    _batch_ok(B)
-    out = torch.empty((B, 2 * E), dtype=torch.int32, device=exp.device)
-    lib = library()
-    with torch.cuda.device(exp.device):
-        err = lib.dgt_join16(exp.data_ptr(), exp.stride(0), raw.data_ptr(),
-                             raw.stride(0), B, E, int(bf16), out.data_ptr(),
-                             _stream(exp))
-    _check(lib, err, "join16")
-    launches["join16"] += 1
-    return out
-
-
-def _join_wide(counter: str, planes, sec1, sec2, nwords: int, s1, s2, count,
-               float_type):
-    """One K7 launch. Tensor mode: s1 and s2 are the sections' row strides
-    (ints) and count is None; archive mode: they are int64[B] word offsets
-    into sec1 == sec2 == the archive of nwords words, and count int64[B]."""
-    fp64 = FloatType(float_type) == FloatType.FLOAT64
+def _join(counter: str, float_type, planes, sec1, sec2, nwords: int, s1, s2,
+          count):
+    """One launch of the join (K7 for fp32 and fp64, K13 for 16-bit types).
+    Tensor mode: s1 and s2 are the sections' row strides (ints) and count
+    is None; archive mode: they are int64[B] word offsets into sec1 == sec2
+    == the archive of nwords words, and count int64[B]. 16-bit types have
+    one section: their callers pass it as sec2 too, and s2 is not read."""
+    ft = FloatType(float_type)
+    ws = FLOAT_WORD_SIZE[ft]
     B, E = planes[0].shape
     _batch_ok(B)
-    exp1 = planes[1] if fp64 else planes[0]
+    exp1 = planes[1] if ws == 8 else planes[0]
     dev = sec1.device
-    out = torch.empty((B, (8 if fp64 else 4) * E), dtype=torch.int32, device=dev)
+    out = torch.empty((B, ws * E), dtype=torch.int32, device=dev)
+    if E == 0:
+        return out
     at = count is not None
     lib = library()
     with torch.cuda.device(dev):
-        err = lib.dgt_join_wide(
+        err = lib.dgt_join(
             planes[0].data_ptr(), planes[0].stride(0), exp1.data_ptr(),
             exp1.stride(0), sec1.data_ptr(), sec2.data_ptr(), nwords,
             s1.data_ptr() if at else None, s2.data_ptr() if at else None,
             0 if at else s1, 0 if at else s2,
-            count.data_ptr() if at else None, B, E, int(fp64), out.data_ptr(),
-            _stream(sec1),
+            count.data_ptr() if at else None, B, E, ws,
+            int(ft == FloatType.BFLOAT16), out.data_ptr(), _stream(sec1),
         )
     _check(lib, err, counter)
     launches[counter] += 1
     return out
 
 
+_NO_CLAMP = (1 << 63) - 1
+
+
+def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
+    """K13 launch, tensor mode; arguments as ``ops.float_split.join16_rows``."""
+    _cuda_only(exp, raw)
+    ft = FloatType.BFLOAT16 if bf16 else FloatType.FLOAT16
+    return _join("join16", ft, [exp], raw, raw, _NO_CLAMP, raw.stride(0), 0,
+                 None)
+
+
+def join16_at(comp32, plane, r_off, count, float_type):
+    """K13 launch, archive mode; arguments as ``ops.float_split.join16_at``."""
+    _cuda_only(comp32, plane, r_off, count)
+    return _join("join16_at", float_type, [plane], comp32, comp32,
+                 comp32.numel(), r_off, r_off, count)
+
+
 def join_wide(planes, sec1, sec2, float_type):
     """K7 launch, tensor mode; arguments as ``ops.float_split.join_wide``."""
     _cuda_only(*planes, sec1, sec2)
-    return _join_wide("join_wide", planes, sec1, sec2, (1 << 63) - 1,
-                      sec1.stride(0), sec2.stride(0), None, float_type)
+    return _join("join_wide", float_type, planes, sec1, sec2, _NO_CLAMP,
+                 sec1.stride(0), sec2.stride(0), None)
 
 
 def join_wide_at(comp32, planes, s1_off, s2_off, count, float_type):
     """K7 launch, archive mode; arguments as
     ``ops.float_split.join_wide_at``."""
     _cuda_only(comp32, *planes, s1_off, s2_off, count)
-    return _join_wide("join_wide_at", planes, comp32, comp32, comp32.numel(),
-                      s1_off, s2_off, count, float_type)
+    return _join("join_wide_at", float_type, planes, comp32, comp32,
+                 comp32.numel(), s1_off, s2_off, count)
 
 
 def byte_hist(rows: torch.Tensor, sizes: torch.Tensor):

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dietgpu_fork_tpu.ops import checksum as JC
 from dietgpu_fork_tpu.ops import histogram as JH
 from dietgpu_fork_torch.core.interop import bytes_from_numpy, rows_from_numpy
@@ -63,6 +64,29 @@ def test_histogram_and_checksum_packed_equal_jax(S, sizes):
     got_c = TC.checksum_packed(to_u32(rows_from_numpy(x32)), torch.from_numpy(n))
     want_c = JC.checksum_packed(jnp.asarray(x32), jn)
     assert np.array_equal(got_c.numpy(), np.asarray(want_c).astype(np.int64))
+
+
+@pytest.mark.parametrize("case", chip_smoke.HIST_EDGE_CASES)
+def test_histogram_on_k8_edge_inputs_equals_jax(case):
+    """chip_smoke.py's K8 edge inputs: rows of one byte value counted to
+    65535, 65536 and 65537 bytes and two tiles, and a ragged batch of N(0,1)
+    bf16 bytes with sizes and a row width that are no multiple of 16 (the
+    last size past the row, clipped)."""
+    rows, sizes = chip_smoke.hist_edge_inputs(case, torch.device("cpu"))
+    x, n = rows.numpy(), sizes.numpy()
+    jn = jnp.asarray(np.minimum(n, x.shape[1]))
+    hist, csum = TH.byte_hist_plain(rows, sizes)
+    want_h = np.asarray(JH.histogram_batched(jnp.asarray(x), jn)).astype(np.int32)
+    want_c = np.asarray(JC.checksum_batched(jnp.asarray(x), jn)).astype(np.int32)
+    assert np.array_equal(hist.numpy(), want_h)
+    assert np.array_equal(csum.numpy(), want_c)
+    if case == "ragged":
+        assert x.shape[1] % 16 and (n % 16).any() and n[-1] > x.shape[1]
+    else:
+        assert (hist.numpy() > 0).sum(axis=1).tolist() == [1] * len(n)
+        assert hist[:, int(case, 16)].tolist() == n.tolist()
+    assert all(torch.equal(p, q)
+               for p, q in zip(TH.byte_hist(rows, sizes), (hist, csum)))
 
 
 def test_histograms_equal_the_mxu_kernels_in_interpret_mode(monkeypatch):
