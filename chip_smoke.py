@@ -44,6 +44,21 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      K5 without histogram) of each type's 16Mi input and the join back
      (K13, K7 in tensor mode), ``chunked_lookup`` and ``rowwise_lookup``
      (K14) with indices past both ends of the tables;
+   - P, the distributed layer (``dietgpu_fork_torch.parallel``) through
+     NCCL in a world of one (``nccl_world_of_one``: no other backend is
+     tried), classic archives, data made from seeds with numpy (``ParallelPhase``):
+     the sharded float codec on 8 members of 2Mi bf16 and fp32 floats
+     (``shard_batch``, ``float_compress_sharded``,
+     ``float_decompress_sharded``, ``global_compressed_sizes``), the
+     shared-table raw ANS on 8 rows of 4 MiB of exponential bytes,
+     ``compressed_all_gather`` of 16Mi bf16, fp32, fp64 and of 16Mi fp32 of
+     random bits (which must ride raw), ``compressed_reduce_scatter`` and
+     ``compressed_all_reduce`` of a 16Mi fp32 and a 16Mi bf16 addend, and
+     ``compressed_ppermute`` of 16Mi bf16 along [(0, 0)]; each output must
+     equal its input bit for bit, each archive the direct call's
+     (``float_compress_padded`` / ``ans_encode_padded`` classic), and every
+     byte, flag and wire word the all-plain run's; then ``utils.profiling``
+     (a trace around one all-gather, ``timed``);
 4. links the port to the JAX reference without JAX: the archive of a fixed
    v2-container input of each type must hash to its ``GOLDEN_V2_SHA256``
    entry, a classic bf16 and a classic raw-ANS archive to their
@@ -89,37 +104,43 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    archive and round-tripped;
 6. times compress and decompress of each main path (3 warm-ups, median of
    10) on the kernel path, and the all-plain path (median of 3); each
-   decode formulation in turns with the default one on the same archive.
+   decode formulation in turns with the default one on the same archive;
+   each function of phase P on its own, with its raw and wire MiB.
 
 ``python3 chip_smoke.py --profile`` instead profiles each main path's
 compress and decompress, each decode formulation's decompress, each S
 path's rank scan alone (K15, and the plain version, which is how the
 scan ran before K15), phase O's run, each of its lookups alone and their
-library calls, K1 alone with and without histogram on N(0,1) and one-bin
-bf16 data, K8 alone on 32 MiB of N(0,1) bf16 bytes and of one byte value
+library calls, phase P's bf16 all-gather and fp32 all-reduce, K1 alone
+with and without histogram on N(0,1) and one-bin bf16 data, K8 alone on 32 MiB of N(0,1) bf16 bytes and of one byte value
 (``profile_paths``: the top device ops and every ``csrc`` kernel's device
 time), then times the host work of K14 rowwise's wrapper piece by piece
 (``wrapper_breakdown``), and prints no result.
 
-It exits non-zero, printing no result, when CUDA is not available or any
-phase fails. The line before the last is a JSON object with one entry per
+It exits non-zero, printing no result, when CUDA or NCCL is not available
+or any phase fails. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dietgpu_fork_torch.api import codec as C
 from dietgpu_fork_torch.core.constants import FLOAT_WORD_SIZE, FloatType
@@ -191,7 +212,10 @@ from dietgpu_fork_torch.ops.sparse_stream import (
     word_ranks_plain,
 )
 from dietgpu_fork_torch.ops.table import normalize_probs_batched, pack_encode_table
+from dietgpu_fork_torch.parallel import collectives as CO
+from dietgpu_fork_torch.parallel import sharded as SH
 from dietgpu_fork_torch.runtime import cuda_kernels as K
+from dietgpu_fork_torch.utils import profiling
 
 BF16, FP32, FP64 = FloatType.BFLOAT16, FloatType.FLOAT32, FloatType.FLOAT64
 FP16 = FloatType.FLOAT16
@@ -249,6 +273,25 @@ P_S = (P_S16, P_S32, P_S64)
 P_F32F, P_F32FC = "FP32-fused", "FP32-fused-classic"
 P_B16T, P_B16TC = "BF16-twopass", "BF16-twopass-classic"
 P_O = "O:ops"
+# phase P, the distributed layer on NCCL in a world of one (classic
+# archives): the sharded float codec in bf16 and fp32, the shared-table raw
+# ANS, and the compressed collectives
+P_SH16, P_SH32, P_TAB = "P:sharded-bf16", "P:sharded-fp32", "P:shared-table"
+P_G16, P_G32, P_G64 = "P:all-gather-bf16", "P:all-gather-fp32", "P:all-gather-fp64"
+P_GRAW = "P:all-gather-raw"
+P_RS32, P_RS16 = "P:reduce-scatter-fp32", "P:reduce-scatter-bf16"
+P_AR32, P_AR16 = "P:all-reduce-fp32", "P:all-reduce-bf16"
+P_PP16 = "P:ppermute-bf16"
+# the P paths of each kernel: K1 and K4 classic on 16-bit data; K5, K6
+# classic and K7 on fp32 and fp64 (the raw gather too: its archive is made,
+# not sent, and the raw words it receives go through the decode, which
+# fails them); K8 on the shared table
+P_16 = (P_SH16, P_G16, P_RS16, P_AR16, P_PP16)
+P_WIDE_DEC = (P_SH32, P_G32, P_G64, P_GRAW, P_RS32, P_AR32)
+P_ALL = P_16 + P_WIDE_DEC + (P_TAB,)
+# phase P's sizes: the sharded codec's members, the shared table's byte
+# rows (the reference ANSTest.cu's exponential law, lambda P_LAMBDA)
+P_MEMBERS, P_MEMBER_N, P_TABLE_BYTES, P_LAMBDA = 8, 1 << 21, 1 << 22, 8.0
 # phase O's lookups: the bf16 decode's LUT against one index per float, and
 # one row-walk step's stream reads (a staged row each, 128 lanes)
 O_LUT, O_ROWS, O_ROW_WORDS, O_LANES = 1024, 1024, 5120, 128
@@ -338,7 +381,7 @@ HIST_EDGE_RAGGED = (0, 1, 15, 17, 4097, 65551, 131071, 3 * 65536 + 5,
 KERNELS = [
     ("split16_hist", "split16_hist", split16_hist_plain,
      "dietgpu_fork_torch/csrc/split16_hist.cu",
-     ("ops/pallas/float_split_fused.py:265",), (P_BF16, P_A, P_CF, P_S16)),
+     ("ops/pallas/float_split_fused.py:265",), (P_BF16, P_A, P_CF, P_S16) + P_16),
     ("encode_rows", "rans_encode_rows", encode_rows_plain,
      "dietgpu_fork_torch/csrc/rans_encode_rows.cu",
      ("ops/pallas/rans_encode_fused.py:114",
@@ -347,7 +390,7 @@ KERNELS = [
     ("runs_merge", "runs_merge", runs_merge_plain,
      "dietgpu_fork_torch/csrc/runs_merge.cu",
      ("ops/pallas/merge.py:305", "ops/pallas/merge.py:74"),
-     (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S),
+     (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S + P_ALL),
     ("decode_join16", "rans_decode_join16", _AT_ROWS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_BF16, P_A, P_S16)),
@@ -355,7 +398,7 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/split_wide_hist.cu",
      ("ops/pallas/float_split_fused.py:291",
       "ops/pallas/float_split_fused.py:305"),
-     (P_FP32, P_FP64, P_C32, P_S32, P_S64)),
+     (P_FP32, P_FP64, P_C32, P_S32, P_S64) + P_WIDE_DEC),
     ("decode_rows", "rans_decode_rows", _AT_ROWS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",),
@@ -364,7 +407,7 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
       "ops/pallas/float_split_fused.py:412"),
-     (P_FP32, P_FP64, P_C32, P_S32, P_S64)),
+     (P_FP32, P_FP64, P_C32, P_S32, P_S64) + P_WIDE_DEC),
     ("join_wide", "join_wide", join_wide_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
@@ -372,17 +415,18 @@ KERNELS = [
     ("byte_hist", "byte_hist", byte_hist_plain,
      "dietgpu_fork_torch/csrc/byte_hist.cu",
      ("ops/pallas/histogram_mxu.py:113", "ops/pallas/histogram_mxu.py:93"),
-     (P_B, P_CR)),
+     (P_B, P_CR, P_TAB)),
     ("encode_blocks", "rans_encode_blocks", encode_blocks_plain,
      "dietgpu_fork_torch/csrc/rans_encode_rows.cu",
      ("ops/pallas/rans_encode_fused.py:305",
-      "ops/pallas/rans_encode_fused.py:114"), (P_CF, P_CR, P_C32)),
+      "ops/pallas/rans_encode_fused.py:114"), (P_CF, P_CR, P_C32) + P_ALL),
     ("decode_blocks", "rans_decode_blocks", _AT_BLOCKS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
-     ("ops/pallas/rans_decode_fused2.py:104",), (P_CR, P_C32, P_B16TC)),
+     ("ops/pallas/rans_decode_fused2.py:104",),
+     (P_CR, P_C32, P_B16TC) + P_WIDE_DEC + (P_TAB,)),
     ("decode_join16_blocks", "rans_decode_join16_blocks",
      _AT_BLOCKS, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
-     ("ops/pallas/rans_decode_fused2.py:104",), (P_CF,)),
+     ("ops/pallas/rans_decode_fused2.py:104",), (P_CF,) + P_16),
     ("pack_bitmap", "bitmap_pack", pack_bitmap_plain,
      "dietgpu_fork_torch/csrc/bitmap_pack.cu",
      ("ops/pallas/bitmap_pack.py:36", "ops/pallas/bitmap_pack.py:62",
@@ -925,6 +969,249 @@ class OpsPhase:
                                 chunked_lookup_plain(self.lut, self.lut_idx))
                 and torch.equal(out["rowwise"],
                                 rowwise_lookup_plain(self.tabs, self.tab_idx)))
+
+
+def exponential_bytes(seed: int, n: int, lam: float) -> np.ndarray:
+    """n bytes by the reference ANSTest.cu's exponential law, as the CPU
+    tests' ``make_exponential_bytes`` draws them, from a seed."""
+    x = np.random.default_rng(seed).exponential(scale=256.0 / lam, size=n)
+    return np.minimum(x, 255).astype(np.uint8)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_floating_point():
+        return t
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def same(a, b) -> bool:
+    """Tensors, or tuples of them, equal bit for bit (NaN bits too)."""
+    a, b = as_tuple(a), as_tuple(b)
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """Phase P's process group: NCCL, rank 0 of a world of one, meeting
+    through a file store in a temporary directory. No other backend is
+    tried: without NCCL the run fails."""
+    store = tempfile.mkdtemp(prefix="chip_smoke_store.")
+    try:
+        check(dist.is_nccl_available(), "P: NCCL is not available")
+        dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                                rank=0, world_size=1)
+        torch.cuda.set_device(0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+class ShardedFloatPath:
+    """P: the sharded float codec on P_MEMBERS members of P_MEMBER_N N(0,1)
+    floats (the rank's block: all of them in a world of one, placed on the
+    card by ``shard_batch``): ``float_compress_sharded``,
+    ``float_decompress_sharded`` and ``global_compressed_sizes``."""
+
+    def __init__(self, name, ft: FloatType, group, seed: int):
+        self.name, self.ft, self.g = name, ft, group
+        w = float_words(seed, P_MEMBERS * P_MEMBER_N, ft).reshape(P_MEMBERS, -1)
+        self.raw_bytes = w.nbytes
+        self.d = SH.shard_batch(group, rows_from_numpy(w.view(np.uint32)))
+        self.n = SH.shard_batch(group, torch.full((P_MEMBERS,), P_MEMBER_N,
+                                                  dtype=torch.int32))
+
+    def compress(self, plain=False):
+        return SH.float_compress_sharded(self.g, self.d, self.n, self.ft,
+                                         PROB_BITS, plain=plain)
+
+    def decompress(self, comp, plain=False):
+        return SH.float_decompress_sharded(self.g, comp, P_MEMBER_N, self.ft,
+                                           PROB_BITS, plain=plain)
+
+    def run(self, plain=False):
+        """-> (archives, comp_bytes, words, success, n, global sizes)."""
+        comp, cb = self.compress(plain)
+        words, ok, n, _, _ = self.decompress(comp, plain)
+        return comp, cb, words, ok, n, SH.global_compressed_sizes(cb, self.g)
+
+    def check(self, res):
+        comp, cb, words, ok, n, sizes = res
+        nw = self.d.shape[1]
+        check(bool(ok.all()) and bool((n == P_MEMBER_N).all())
+              and torch.equal(words[:, :nw], self.d)
+              and not bool(words[:, nw:].any()), f"{self.name}: round trip")
+        check(torch.equal(sizes, cb), f"{self.name}: global sizes")
+        check(same((comp, cb), float_compress_padded(
+            self.d, self.n, self.ft, PROB_BITS, native=False)),
+            f"{self.name}: archives equal float_compress_padded(native=False)")
+        check(not C.detect_native_layout(True, comp), f"{self.name}: classic")
+
+    def wire_bytes(self, res) -> int:
+        return int(res[1].sum())
+
+    def timings(self, res):
+        comp, cb = res[:2]
+        return (("float_compress_sharded", self.compress),
+                ("float_decompress_sharded", lambda: self.decompress(comp)),
+                ("global_compressed_sizes",
+                 lambda: SH.global_compressed_sizes(cb, self.g)))
+
+
+class SharedTablePath:
+    """P: ``ans_encode_shared_table`` (one K8 histogram, summed by an NCCL
+    all-reduce) and ``ans_decode_sharded`` on P_MEMBERS rows of
+    P_TABLE_BYTES exponential bytes."""
+
+    name = P_TAB
+
+    def __init__(self, group, seed: int):
+        self.g = group
+        x = exponential_bytes(seed, P_MEMBERS * P_TABLE_BYTES, P_LAMBDA)
+        self.raw_bytes = x.nbytes
+        self.x = SH.shard_batch(group, torch.from_numpy(x.reshape(P_MEMBERS, -1)))
+        self.sizes = SH.shard_batch(group, torch.full((P_MEMBERS,), P_TABLE_BYTES,
+                                                      dtype=torch.int32))
+
+    def compress(self, plain=False):
+        return SH.ans_encode_shared_table(self.g, self.x, self.sizes, PROB_BITS,
+                                          plain=plain)
+
+    def decompress(self, comp, plain=False):
+        return SH.ans_decode_sharded(self.g, comp, P_TABLE_BYTES, PROB_BITS,
+                                     plain=plain)
+
+    def run(self, plain=False):
+        """-> (archives, comp_bytes, bytes, success, n)."""
+        comp, cb = self.compress(plain)
+        return (comp, cb) + tuple(self.decompress(comp, plain)[:3])
+
+    def check(self, res):
+        comp, cb, out, ok, n = res
+        check(bool(ok.all()) and torch.equal(out, self.x)
+              and bool((n == P_TABLE_BYTES).all()), f"{self.name}: round trip")
+        check(bool((comp[:, 32:544] == comp[:1, 32:544]).all()),
+              f"{self.name}: every archive embeds one table")
+        hist = byte_hist(self.x, self.sizes)[0].sum(dim=0, dtype=torch.int32)
+        tots = torch.full_like(self.sizes, int(self.sizes.sum()))
+        check(same((comp, cb), ans_encode_padded(
+            self.x, self.sizes, PROB_BITS, hist=hist[None].expand(P_MEMBERS, -1),
+            hist_totals=tots, native=False)),
+            f"{self.name}: archives equal ans_encode_padded(hist=, hist_totals=)")
+
+    def wire_bytes(self, res) -> int:
+        return int(res[1].sum())
+
+    def timings(self, res):
+        comp = res[0]
+        return (("ans_encode_shared_table", self.compress),
+                ("ans_decode_sharded", lambda: self.decompress(comp)))
+
+
+class CollectivePath:
+    """P: one compressed collective on one (1, MAIN_N) piece: in a world of
+    one, its output is the piece itself, bit for bit. flag is what the
+    piece's payload must ride as (an archive, or raw for random bits), and
+    hops how many times the collective sends it (the all-reduce: its
+    reduce-scatter's one hop, then its gather)."""
+
+    def __init__(self, name, fn, x, group, flag=CO._FLAG_COMP, hops=1, **kw):
+        self.name, self.fn, self.x, self.g = name, fn, x, group
+        self.flag, self.hops, self.kw = flag, hops, kw
+        self.raw_bytes = x.numel() * x.element_size()
+
+    def run(self, plain=False):
+        """-> (output, ok, wire words)."""
+        return self.fn(self.x, group=self.g, return_stats=True, plain=plain,
+                       **self.kw)
+
+    def check(self, res):
+        """The output is the input; the payload of a direct encode has the
+        path's flag, and the run's wire is exactly that payload's chunks on
+        each hop, so the run sent what the flag says."""
+        out, ok, wire = res
+        check(bool(ok.all()) and same(out, self.x),
+              f"{self.name}: the output equals the input bit for bit")
+        w, n, w32 = CO._to_u32(self.x)
+        cw = CO._chunk_words(w32, None)
+        _, meta = CO._encode_payload(w, n, CO._ft_of(self.x.dtype), PROB_BITS,
+                                     CO._pad_words(w32, cw))
+        check(int(meta[0]) == self.flag,
+              f"{self.name}: the payload rides with flag {int(meta[0])}")
+        want = self.hops * -(-int(meta[1]) // cw) * cw
+        check(int(wire.sum()) == want,
+              f"{self.name}: the run moved {int(wire.sum())} wire words, not "
+              f"{want}, the chunks of a flag-{self.flag} payload of "
+              f"{int(meta[1])} words on {self.hops} hop(s)")
+
+    def wire_bytes(self, res) -> int:
+        return 4 * int(res[2].sum())
+
+    def timings(self, res):
+        return ((self.fn.__name__, self.run),)
+
+
+class ParallelPhase:
+    """P: the distributed layer (``dietgpu_fork_torch.parallel``) through
+    NCCL in a world of one, on data made from seeds with numpy: the sharded
+    float codec (bf16, fp32), the shared-table raw ANS, ``compressed_all_gather``
+    of 16Mi bf16, fp32, fp64 and of 16Mi fp32 of uniform random bits (raw,
+    flag 2), ``compressed_reduce_scatter`` and ``compressed_all_reduce`` of a
+    16Mi fp32 and a 16Mi bf16 addend, ``compressed_ppermute`` of 16Mi bf16
+    along [(0, 0)]. Archives are classic, as the JAX package's."""
+
+    def __init__(self):
+        g = SH.data_mesh()
+        check(dist.get_backend(g) == "nccl" and dist.get_world_size(g) == 1,
+              "P: an NCCL world of one")
+
+        def piece(words, dtype):
+            return SH.shard_batch(g, floats_from_words(words, dtype)[None])
+
+        x16 = piece(float_words(30, MAIN_N, BF16), torch.bfloat16)
+        x32 = piece(float_words(31, MAIN_N, FP32), torch.float32)
+        x64 = piece(float_words(32, MAIN_N, FP64), torch.float64)
+        bits = piece(np.random.default_rng(33).integers(
+            0, 1 << 32, MAIN_N, dtype=np.uint64).astype(np.uint32), torch.float32)
+        gather = CO.compressed_all_gather
+        rs, ar = CO.compressed_reduce_scatter, CO.compressed_all_reduce
+        self.paths = [
+            ShardedFloatPath(P_SH16, BF16, g, 20),
+            ShardedFloatPath(P_SH32, FP32, g, 21),
+            SharedTablePath(g, 22),
+            CollectivePath(P_G16, gather, x16, g),
+            CollectivePath(P_G32, gather, x32, g),
+            CollectivePath(P_G64, gather, x64, g),
+            CollectivePath(P_GRAW, gather, bits, g, flag=CO._FLAG_RAW),
+            CollectivePath(P_RS32, rs, x32, g),
+            CollectivePath(P_RS16, rs, x16, g),
+            CollectivePath(P_AR32, ar, x32, g, hops=2),
+            CollectivePath(P_AR16, ar, x16, g, hops=2),
+            CollectivePath(P_PP16, CO.compressed_ppermute, x16, g, perm=[(0, 0)]),
+        ]
+        # --profile: the bf16 all-gather and the fp32 all-reduce
+        self.profiled = [p for p in self.paths if p.name in (P_G16, P_AR32)]
+
+    def check_profiling(self):
+        """``utils.profiling`` on the card: a trace around one all-gather
+        writes a file; ``timed`` gives a finite time."""
+        g16 = next(p for p in self.paths if p.name == P_G16)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_trace.")
+        try:
+            with profiling.trace(tmp) as path:
+                g16.run()
+            size = os.path.getsize(path)
+            check(size > 0, "P: profiling.trace wrote no trace")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        ms = profiling.timed(g16.run)
+        check(math.isfinite(ms) and ms > 0, f"P: profiling.timed gave {ms}")
+        print(f"P: profiling.trace around {g16.name} wrote {size} bytes; "
+              f"profiling.timed {ms:.3f} ms (best of 5, fenced)")
 
 
 def ragged_batch(ft, count, seed, dev):
@@ -1698,7 +1985,8 @@ def _kernel_name(name: str) -> str:
 
 def profile_paths(paths, ops, card: str) -> None:
     """``--profile``: for each main path's compress and decompress (a
-    decode formulation's decompress alone; an S path's rank scan alone too,
+    decode formulation's decompress alone; a phase P collective's call
+    alone; an S path's rank scan alone too,
     K15 and the plain version; phase O's run, each of its lookups alone and
     their library calls, K1 alone with and without histogram on N(0,1) and
     one-bin 16Mi bf16, K8 alone on 32 MiB of N(0,1) bf16 bytes and of one
@@ -1720,6 +2008,8 @@ def profile_paths(paths, ops, card: str) -> None:
             # each lookup alone and its library call too, device time
             # against device time
             runs = (("run", ops.run),) + ops.lookups + ops.k1_alone + ops.k8_alone
+        elif isinstance(mp, CollectivePath):
+            runs = ((mp.fn.__name__, mp.run),)
         else:
             arc = mp.compress()[0]
             runs = (("compress", mp.compress),
@@ -1892,6 +2182,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    with nccl_world_of_one():
+        return run()
+
+
+def run() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}")
@@ -1914,8 +2209,9 @@ def main() -> int:
                   (P_F32F, FP32, True, True), (P_B16T, BF16, True, False),
                   (P_F32FC, FP32, False, True), (P_B16TC, BF16, False, False))]
     ops = OpsPhase(dev)
+    par = ParallelPhase()
     if "--profile" in sys.argv[1:]:
-        profile_paths(paths, ops, card)
+        profile_paths(paths + par.profiled, ops, card)
         return 0
     print(f"K2 CTAs an SM: row layout {K.encode_ctas_per_sm(False)}, classic "
           f"{K.encode_ctas_per_sm(True)}")
@@ -1936,6 +2232,8 @@ def main() -> int:
         hold_kernels(mp.name, record_calls(
             lambda: mp.decompress(mp.compress()[0])), report)
     hold_kernels(ops.name, record_calls(ops.run), report)
+    for pp in par.paths:
+        hold_kernels(pp.name, record_calls(pp.run), report)
 
     # 3. the main paths, each counted on its own
     archives = {}
@@ -1991,6 +2289,17 @@ def main() -> int:
     print(f"{ops.name}: split_packed + join exact for bf16, fp32, fp64; "
           f"lookups == plain; launches {counts}")
     del o_out
+    # P: each path counted, checked exactly, and equal to its all-plain run
+    p_results = {}
+    for pp in par.paths:
+        res, counts = counted(pp.name, pp.run, launches, report)
+        pp.check(res)
+        check(same(res, pp.run(plain=True)),
+              f"{pp.name}: bytes, flags and wire words equal the all-plain run's")
+        p_results[pp.name] = res
+        print(f"{pp.name}: exact, equal to the direct calls and to the "
+              f"all-plain run; launches {counts}")
+    par.check_profiling()
     for w in launches:
         report[w]["launches"] = launches[w]
     # A: the API's archive is float_compress_core's, in the native layout
@@ -2077,6 +2386,18 @@ def main() -> int:
         for k, ms in t.items():
             print(f"{mp.name} {k}: {ms:.3f} ms, {gb / (ms / 1e3):.3f} GB/s "
                   f"({mp.raw_bytes / 2**20:.1f} MiB, median; {card})")
+
+    # P: each function timed on its own; the wire is a collective's words
+    # moved by this rank, the archives' bytes for the sharded codecs
+    for pp in par.paths:
+        res = p_results[pp.name]
+        mib, wire = pp.raw_bytes / 2**20, pp.wire_bytes(res)
+        for what, fn in pp.timings(res):
+            ms = cuda_ms(fn, 3, 10)
+            print(f"{pp.name} {what}: {ms:.3f} ms, "
+                  f"{pp.raw_bytes / 1e9 / (ms / 1e3):.3f} GB/s of raw input; raw "
+                  f"{mib:.1f} MiB, wire {wire / 2**20:.3f} MiB, share "
+                  f"{wire / pp.raw_bytes:.6f} (median; {card})")
 
     print(card_line())
     print(json.dumps({"kernels": list(report.values())}))

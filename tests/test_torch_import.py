@@ -42,6 +42,9 @@ def test_import_leaves_jax_out():
         "import dietgpu_fork_torch.core.interop\n"
         "import dietgpu_fork_torch.api.codec\n"
         "import dietgpu_fork_torch.runtime.stack_memory\n"
+        "import dietgpu_fork_torch.parallel.collectives\n"
+        "import dietgpu_fork_torch.parallel.sharded\n"
+        "import dietgpu_fork_torch.utils.profiling\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'dietgpu_fork_tpu')]\n"
