@@ -1,0 +1,9 @@
+"""Host ms a round trip (compress and decompress) spends inside the
+program's ``model:`` spans, outside its ``kernel:`` and ``sync:`` spans
+(``program_spans.py``)."""
+
+from bench_torch import program_spans
+
+
+def read(trace):
+    return program_spans.model_host_ms(trace, "roundtrip")

@@ -1,0 +1,161 @@
+"""Readings of the spans that the program records itself while a profiler
+runs (``dietgpu_fork_torch/utils/profiling.py``), from a ``TracedSlice``'s
+public attributes (``host``, ``spans``, ``runtime``, ``calls``,
+``roundtrips``, ``ancestors``):
+
+* ``api:<function>``: a public entry of the API;
+* ``model:<module>.<function>``: a model entry;
+* ``kernel:<wrapper>``: a kernel wrapper;
+* ``stage:<module>.<stage>``: a stage of a path;
+* ``sync:<module>.<site>``: a statement that blocks the host on the device.
+
+The benchmark's own spans (``tracing.instrument``) wrap the model entries
+and the kernel wrappers under the same names as the program's spans inside
+them: a span counts once where a span of its name encloses it, and times
+are read from unions of intervals. A slice reads None everywhere where the
+program recorded no ``api:`` span, or where no device op ran (a run on the
+CPU, where no statement waits on a device).
+"""
+
+from __future__ import annotations
+
+import bisect
+import collections
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from . import stats
+from .tracing import DIRECTIONS, _end, _launches
+
+FAMILIES = ("api:", "model:", "kernel:")
+
+
+def readable(t) -> bool:
+    """Whether the slice holds the program's own spans and device work."""
+    return bool(t.device) and any(s["name"].startswith("api:") for s in t.spans)
+
+
+def _direction(t, e) -> Optional[str]:
+    for d in DIRECTIONS:
+        if "bench." + d in t.ancestors[id(e)]:
+            return d
+    return None
+
+
+def _directions(direction: str) -> Tuple[str, ...]:
+    return DIRECTIONS if direction == "roundtrip" else (direction,)
+
+
+def _innermost(names: Sequence[str], prefixes) -> Optional[str]:
+    for name in reversed(names):
+        if name.startswith(tuple(prefixes)):
+            return name
+    return None
+
+
+def spans_of(t, prefix: str, directions: Sequence[str] = DIRECTIONS) -> List[dict]:
+    """The spans whose name starts with prefix, inside a call of the given
+    directions, leaving out each one that a span of its own name encloses."""
+    return [s for s in t.spans if s["name"].startswith(prefix)
+            and s["name"] not in t.ancestors[id(s)] and _direction(t, s) in directions]
+
+
+def host_syncs_per_roundtrip(t) -> Optional[float]:
+    """``sync:`` spans inside the API's entries, per round trip."""
+    if not readable(t) or not t.roundtrips:
+        return None
+    n = sum(1 for s in spans_of(t, "sync:")
+            if _innermost(t.ancestors[id(s)], ("api:",)) is not None)
+    return n / t.roundtrips
+
+
+def launches_by_family(t) -> Dict[Optional[str], int]:
+    """Runtime calls that put work on the device (``tracing._launches``)
+    inside the calls, by the family of their innermost ``api:``,
+    ``model:`` or ``kernel:`` span (None: inside none)."""
+    out: Dict[Optional[str], int] = collections.Counter()
+    for e in t.runtime:
+        if _launches(e["name"]) and _direction(t, e):
+            owner = _innermost(t.ancestors[id(e)], FAMILIES)
+            out[None if owner is None else owner[:owner.index(":") + 1]] += 1
+    return out
+
+
+def launches_per_roundtrip(t, family: str) -> Optional[float]:
+    """Launching runtime calls per round trip whose innermost ``api:``,
+    ``model:`` or ``kernel:`` span is of ``family``."""
+    if not readable(t) or not t.roundtrips:
+        return None
+    return launches_by_family(t)[family] / t.roundtrips
+
+
+def model_host_ms(t, direction: str) -> Optional[float]:
+    """Host ms a call (a round trip: "roundtrip") spends inside ``model:``
+    spans, outside ``kernel:`` and ``sync:`` spans."""
+    dirs = _directions(direction)
+    n = len(t.calls[dirs[0]])
+    if not readable(t) or not n:
+        return None
+    model = stats.union((s["ts"], _end(s)) for s in spans_of(t, "model:", dirs))
+    if not model:
+        return None
+    out = [(s["ts"], _end(s)) for p in ("kernel:", "sync:") for s in spans_of(t, p, dirs)]
+    total = sum(b - a - stats.covered(out, (a, b)) for a, b in model)
+    return total / n / 1e3
+
+
+def sync_coverage(t) -> Optional[dict]:
+    """The host's waits on the device against the ``sync:`` spans:
+    ``runtime_syncs`` (``cudaStreamSynchronize`` / ``cudaDeviceSynchronize``
+    calls inside an ``api:`` span), ``covered`` (of those, the ones inside
+    a ``sync:`` span), ``sync_spans`` and ``empty`` (``sync:`` spans inside
+    an ``api:`` span that hold no such call), over the whole slice."""
+    if not readable(t):
+        return None
+    waits = [e for e in t.runtime if "Synchronize" in e["name"] and _direction(t, e)
+             and _innermost(t.ancestors[id(e)], ("api:",)) is not None]
+    covered = sum(1 for e in waits if _innermost(t.ancestors[id(e)], ("sync:",)))
+    syncs = [s for s in spans_of(t, "sync:")
+             if _innermost(t.ancestors[id(s)], ("api:",)) is not None]
+    starts = sorted(e["ts"] for e in waits)
+    empty = [s["name"] for s in syncs
+             if bisect.bisect_right(starts, _end(s)) == bisect.bisect_left(starts, s["ts"])]
+    return {"runtime_syncs": len(waits), "covered": covered, "sync_spans": len(syncs),
+            "empty": sorted(collections.Counter(empty).items())}
+
+
+def _label(names: Sequence[str]) -> str:
+    """Where a host event lies by stage: its innermost ``stage:`` span,
+    else its innermost ``model:`` or ``api:`` span, else "host"."""
+    return (_innermost(names, ("stage:",)) or _innermost(names, ("model:", "api:"))
+            or "host")
+
+
+def by_stage(t) -> Dict[str, Dict[str, float]]:
+    """Per stage label (``_label``) and direction: ``launches`` a round
+    trip and ``idle_ms`` a round trip, the time inside the calls in which no
+    device op ran, each stretch split at the program's span boundaries."""
+    if not readable(t) or not t.roundtrips:
+        return {}
+    rows: Dict[str, Dict[str, float]] = collections.defaultdict(
+        lambda: collections.defaultdict(float))
+    for e in t.runtime:
+        d = _direction(t, e)
+        if d and _launches(e["name"]):
+            rows[_label(t.ancestors[id(e)])][d + ".launches"] += 1 / t.roundtrips
+    # change points of the label over the main thread's program spans
+    prog = [s for s in t.spans if s["name"].split(":")[0] in ("api", "model", "stage")]
+    points = sorted({p for s in prog for p in (s["ts"], _end(s))})
+    labels = []
+    for a, b in zip(points, points[1:]):
+        mid = (a + b) / 2
+        labels.append(_label([s["name"] for s in prog if s["ts"] <= mid < _end(s)]))
+    ivs = [(op["ts"], _end(op)) for op, _ in t.device]
+    for d in DIRECTIONS:
+        for win in t.calls[d]:
+            for a, b in stats.gaps(ivs, win):
+                cuts = [a] + [p for p in points if a < p < b] + [b]
+                for x, y in zip(cuts, cuts[1:]):
+                    i = bisect.bisect_right(points, (x + y) / 2) - 1
+                    lab = labels[i] if 0 <= i < len(labels) else "host"
+                    rows[lab][d + ".idle_ms"] += (y - x) / 1e3 / t.roundtrips
+    return {k: dict(v) for k, v in rows.items()}

@@ -62,6 +62,7 @@ from ..ops.bitops import to_u32
 from ..ops.checksum import checksum_batched
 from ..ops.merge import runs_merge
 from ..runtime import stack_memory as sm
+from ..utils.profiling import span, spanned
 
 _DTYPE_TO_FT = {
     torch.float16: FloatType.FLOAT16,
@@ -146,7 +147,8 @@ def _pack_byte_rows(ts: Sequence[torch.Tensor], row_bytes: int):
         b = _as_bytes(t)
         buf[i, : b.numel()] = b
         sizes.append(b.numel())
-    return buf, torch.tensor(sizes, dtype=torch.int32, device=dev)
+    with span("sync:api.row_sizes"):
+        return buf, torch.tensor(sizes, dtype=torch.int32, device=dev)
 
 
 def pack_split_rows(x_flat: torch.Tensor, split_sizes: Sequence[int]):
@@ -157,12 +159,15 @@ def pack_split_rows(x_flat: torch.Tensor, split_sizes: Sequence[int]):
     split = torch.tensor([int(s) for s in split_sizes], dtype=torch.int64)
     offs = torch.cumsum(split, 0) - split
     S = int(split.max()) if split.numel() else 1
+    with span("sync:api.split_sizes"):
+        offs_d, split_d = offs.to(dev), split.to(dev)
+        split32 = split.to(device=dev, dtype=torch.int32)
     cols = torch.arange(S, dtype=torch.int64, device=dev)[None, :]
-    idx = (offs.to(dev)[:, None] + cols).clamp(0, x_flat.numel() - 1)
+    idx = (offs_d[:, None] + cols).clamp(0, x_flat.numel() - 1)
     rows = x_flat.reshape(-1)[idx]
-    keep = cols < split.to(dev)[:, None]
+    keep = cols < split_d[:, None]
     return (torch.where(keep, rows, torch.zeros((), dtype=rows.dtype, device=dev)),
-            split.to(device=dev, dtype=torch.int32))
+            split32)
 
 
 def _rows_to_words32(rows: torch.Tensor) -> torch.Tensor:
@@ -179,6 +184,7 @@ def _rows_to_words32(rows: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+@spanned("api:compress_data")
 def compress_data(
     compress_as_float: bool,
     ts: Sequence[torch.Tensor],
@@ -210,27 +216,32 @@ def compress_data(
         if any(float_type_of(t) != ft for t in ts):
             raise ValueError("all batch members must share a dtype")
         max_elems = max(max(t.numel() for t in ts), 1)
-        buf, _ = _pack_byte_rows(ts, max_elems * FLOAT_WORD_SIZE[ft])
-        sizes = torch.tensor([t.numel() for t in ts], dtype=torch.int32,
-                             device=buf.device)
+        with span("stage:api.pack_rows"):
+            buf, _ = _pack_byte_rows(ts, max_elems * FLOAT_WORD_SIZE[ft])
+            with span("sync:api.float_counts"):
+                sizes = torch.tensor([t.numel() for t in ts], dtype=torch.int32,
+                                     device=buf.device)
         compress = sparse_float_compress_padded if sparse else float_compress_padded
         comp, comp_bytes = compress(
             buf.view(torch.int32), sizes, ft, prob_bits, checksum, native=native)
         temp = sm.float_compress_temp_size(len(ts), max_elems, ft)
     else:
         max_bytes = max(max(t.numel() * t.element_size() for t in ts), 1)
-        buf, sizes = _pack_byte_rows(ts, max_bytes)
+        with span("stage:api.pack_rows"):
+            buf, sizes = _pack_byte_rows(ts, max_bytes)
         hist = None
         if histogram is not None:
             if isinstance(histogram, np.ndarray):  # numpy has uint32, torch not
                 histogram = torch.from_numpy(histogram.astype(np.int64))
-            hist = histogram.to(device=buf.device, dtype=torch.int64)
+            with span("sync:api.histogram"):
+                hist = histogram.to(device=buf.device, dtype=torch.int64)
         comp, comp_bytes = ans_encode_padded(
             buf, sizes, prob_bits, checksum, hist, native=native)
         temp = sm.ans_encode_temp_size(len(ts), max_bytes)
     return comp, comp_bytes, temp
 
 
+@spanned("api:compress_data_split_size")
 def compress_data_split_size(
     compress_as_float: bool,
     t: torch.Tensor,
@@ -251,7 +262,8 @@ def compress_data_split_size(
     if compress_as_float:
         ft = float_type_of(t)
         words = t.contiguous().reshape(-1).view(_WORD_INT[FLOAT_WORD_SIZE[ft]])
-        rows, sizes = pack_split_rows(words, split)
+        with span("stage:api.pack_rows"):
+            rows, sizes = pack_split_rows(words, split)
         comp, comp_bytes = float_compress_padded(
             _rows_to_words32(rows), sizes, ft, prob_bits, checksum,
             native=native)
@@ -261,15 +273,17 @@ def compress_data_split_size(
             raise ValueError("interior raw-ANS splits must be 4-byte aligned")
         item = t.element_size()
         byte_sizes = [s * item for s in split]
-        rows, sizes = pack_split_rows(_as_bytes(t), byte_sizes)
-        if rows.shape[1] % 4:
-            rows = F.pad(rows, (0, -rows.shape[1] % 4))
+        with span("stage:api.pack_rows"):
+            rows, sizes = pack_split_rows(_as_bytes(t), byte_sizes)
+            if rows.shape[1] % 4:
+                rows = F.pad(rows, (0, -rows.shape[1] % 4))
         comp, comp_bytes = ans_encode_padded(
             rows, sizes, prob_bits, checksum, native=native)
         temp = sm.ans_encode_temp_size(len(split), max(byte_sizes))
     return comp, comp_bytes, temp
 
 
+@spanned("api:compress_data_simple")
 def compress_data_simple(
     compress_as_float: bool,
     ts: Sequence[torch.Tensor],
@@ -283,7 +297,10 @@ def compress_data_simple(
     comp, comp_bytes, _ = compress_data(
         compress_as_float, ts, checksum, prob_bits, sparse, native=native
     )
-    return [comp[i, :cb].clone() for i, cb in enumerate(comp_bytes.tolist())]
+    with span("stage:api.outputs"):
+        with span("sync:api.simple_sizes"):
+            comp_bytes = comp_bytes.tolist()
+        return [comp[i, :cb].clone() for i, cb in enumerate(comp_bytes)]
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +316,8 @@ def _comp_matrix(comps: Union[Sequence[torch.Tensor], torch.Tensor]) -> torch.Te
         C = comps.shape[1]
         return F.pad(comps, (0, -C % 4)) if C % 4 else comps.contiguous()
     comps = list(comps)
-    buf, _ = _pack_byte_rows(comps, max(c.numel() for c in comps))
+    with span("stage:api.pack_rows"):
+        buf, _ = _pack_byte_rows(comps, max(c.numel() for c in comps))
     return buf
 
 
@@ -316,10 +334,12 @@ def _float_type_from(m: torch.Tensor, dtype, sparse: bool = False) -> FloatType:
     if dtype is not None:
         return float_type_of(dtype)
     m32 = m.view(torch.int32)
-    off = int(_dense_offsets(m32[:1], sparse)[0])
-    return FloatType(int(m32[0, min(off + 2, m32.shape[1] - 1)]) & 0xF)
+    with span("sync:api.float_type"):
+        off = int(_dense_offsets(m32[:1], sparse)[0])
+        return FloatType(int(m32[0, min(off + 2, m32.shape[1] - 1)]) & 0xF)
 
 
+@spanned("stage:api.layout")
 def detect_native_layout(
     compress_as_float: bool,
     m: torch.Tensor,
@@ -352,7 +372,8 @@ def detect_native_layout(
                                  128 + _align_section(s1w) + _align_section(s2w),
                                  8 + s1w + s2w)
         magic = torch.gather(m32, 1, off.clamp(0, CW - 1)[:, None])[:, 0]
-    magic = (to_u32(magic) >> 16).cpu()
+    with span("sync:api.layout"):
+        magic = (to_u32(magic) >> 16).cpu()
     is_nat = magic == 0xDB0D
     is_cls = magic == 0xD00D
     if bool(is_nat.any()) and bool(is_cls.any()):
@@ -363,9 +384,11 @@ def detect_native_layout(
     return bool(is_nat.any())
 
 
+@spanned("stage:api.status")
 def _checksum_status(ok, arch, got) -> DecompressStatus:
     status = DecompressStatus()
-    ok, arch, got = (x.cpu().tolist() for x in (ok, arch, got))
+    with span("sync:api.status"):
+        ok, arch, got = (x.cpu().tolist() for x in (ok, arch, got))
     for i, (o, a, g) in enumerate(zip(ok, arch, got)):
         if not o:
             # decode itself failed; its computed checksum is meaningless
@@ -387,8 +410,10 @@ def _decode_rows(compress_as_float, m, cap, caps, dtype, checksum, prob_bits,
     int64[B]; success bool[B]; status or None; temp; float type or None),
     all tensors on m's device."""
     B = m.shape[0]
-    caps_t = None if caps is None else torch.tensor(
-        caps, dtype=torch.int64, device=m.device)
+    caps_t = None
+    if caps is not None:
+        with span("sync:api.caps"):
+            caps_t = torch.tensor(caps, dtype=torch.int64, device=m.device)
     if compress_as_float:
         ft = _float_type_from(m, dtype, sparse)
         if native is None:
@@ -415,6 +440,7 @@ def _decode_rows(compress_as_float, m, cap, caps, dtype, checksum, prob_bits,
     return rows, sizes, success, status, temp, ft
 
 
+@spanned("api:decompress_data")
 def decompress_data(
     compress_as_float: bool,
     comps: Union[Sequence[torch.Tensor], torch.Tensor],
@@ -441,21 +467,24 @@ def decompress_data(
     rows, sizes, success, status, temp, ft = _decode_rows(
         compress_as_float, m, cap, caps, dtype, checksum, prob_bits, native,
         sparse)
-    sizes_h, success_h = sizes.cpu(), success.cpu()
-    if compress_as_float:
-        ws = FLOAT_WORD_SIZE[ft]
-        u8 = rows.view(torch.uint8)
-        outs = [u8[i, : min(int(s), c) * ws].view(dtype_of(ft)).clone()
-                for i, (s, c) in enumerate(zip(sizes_h.tolist(), caps))]
-    else:
-        outs = [rows[i, : min(int(s), c)].clone()
-                for i, (s, c) in enumerate(zip(sizes_h.tolist(), caps))]
+    with span("stage:api.outputs"):
+        with span("sync:api.sizes"):
+            sizes_h, success_h = sizes.cpu(), success.cpu()
+        if compress_as_float:
+            ws = FLOAT_WORD_SIZE[ft]
+            u8 = rows.view(torch.uint8)
+            outs = [u8[i, : min(int(s), c) * ws].view(dtype_of(ft)).clone()
+                    for i, (s, c) in enumerate(zip(sizes_h.tolist(), caps))]
+        else:
+            outs = [rows[i, : min(int(s), c)].clone()
+                    for i, (s, c) in enumerate(zip(sizes_h.tolist(), caps))]
     status = status or DecompressStatus()
     if checksum and not status.ok:
         raise RuntimeError(f"decompression checksum mismatch: {status.error_info}")
     return outs, sizes_h, success_h, status, temp
 
 
+@spanned("api:decompress_data_device")
 def decompress_data_device(
     compress_as_float: bool,
     comps: Union[Sequence[torch.Tensor], torch.Tensor],
@@ -515,7 +544,9 @@ def _ragged_concat(rows32: torch.Tensor, byte_lens: Sequence[int]) -> torch.Tens
         last = (seam_i - 1) * (4 * Wcap) + lens[seam_i - 1] - 2
         first = seam_i * (4 * Wcap)
         idx = np.stack([last, last + 1, first, first + 1], axis=1)
-        seams = u8.reshape(-1)[torch.from_numpy(idx).to(dev)]
+        with span("sync:api.concat_runs"):
+            idx = torch.from_numpy(idx).to(dev)
+        seams = u8.reshape(-1)[idx]
         srcs.append(seams.contiguous().view(torch.int32).reshape(-1))
     dst = np.concatenate([w_start, offs[seam_i] // 4])
     ref = np.concatenate([(a == 2).astype(np.int64), np.full(nseam, 2)])
@@ -525,11 +556,13 @@ def _ragged_concat(rows32: torch.Tensor, byte_lens: Sequence[int]) -> torch.Tens
     order = np.lexsort((ln, dst))
 
     def t(x, dt=torch.int64):
-        return torch.from_numpy(np.ascontiguousarray(x[order])).to(dev, dt)
+        with span("sync:api.concat_runs"):
+            return torch.from_numpy(np.ascontiguousarray(x[order])).to(dev, dt)
 
     return runs_merge(srcs, t(dst), t(ref, torch.int32), t(off), t(ln), OW)
 
 
+@spanned("api:decompress_data_split_size")
 def decompress_data_split_size(
     compress_as_float: bool,
     comps: Union[Sequence[torch.Tensor], torch.Tensor],
@@ -555,25 +588,28 @@ def decompress_data_split_size(
     rows, sizes, success, status, temp, ft = _decode_rows(
         compress_as_float, m, max(split), split, dtype, checksum, prob_bits,
         native)
-    sizes_h, success_h = sizes.cpu(), success.cpu()
-    for i, s in enumerate(split):
-        if not bool(success_h[i]):
-            raise RuntimeError(f"member {i}: decompression failed")
-        if int(sizes_h[i]) != s:
-            raise RuntimeError(
-                f"member {i}: decoded size {int(sizes_h[i])} != expected {s}")
-    status = status or DecompressStatus()
-    if checksum and not status.ok:
-        raise RuntimeError(f"decompression checksum mismatch: {status.error_info}")
-    ws = FLOAT_WORD_SIZE[ft] if compress_as_float else 1
-    rows32 = rows if compress_as_float else _rows_to_words32(rows)
-    flat = _ragged_concat(rows32, [s * ws for s in split])
-    out = flat.view(torch.uint8)[: sum(split) * ws]
-    if compress_as_float:
-        out = out.view(dtype_of(ft))
-    return out, sizes_h, success_h, status, temp
+    with span("stage:api.outputs"):
+        with span("sync:api.sizes"):
+            sizes_h, success_h = sizes.cpu(), success.cpu()
+        for i, s in enumerate(split):
+            if not bool(success_h[i]):
+                raise RuntimeError(f"member {i}: decompression failed")
+            if int(sizes_h[i]) != s:
+                raise RuntimeError(
+                    f"member {i}: decoded size {int(sizes_h[i])} != expected {s}")
+        status = status or DecompressStatus()
+        if checksum and not status.ok:
+            raise RuntimeError(f"decompression checksum mismatch: {status.error_info}")
+        ws = FLOAT_WORD_SIZE[ft] if compress_as_float else 1
+        rows32 = rows if compress_as_float else _rows_to_words32(rows)
+        flat = _ragged_concat(rows32, [s * ws for s in split])
+        out = flat.view(torch.uint8)[: sum(split) * ws]
+        if compress_as_float:
+            out = out.view(dtype_of(ft))
+        return out, sizes_h, success_h, status, temp
 
 
+@spanned("api:decompress_data_simple")
 def decompress_data_simple(
     compress_as_float: bool,
     comps: Union[Sequence[torch.Tensor], torch.Tensor],
@@ -592,8 +628,10 @@ def decompress_data_simple(
     else:
         sizes, _ = ans_get_compressed_info(m)
         dt = None
+    with span("sync:api.simple_sizes"):
+        sizes = sizes.tolist()
     outs, _, success, _, _ = decompress_data(
-        compress_as_float, m, sizes.tolist(), dt, checksum, prob_bits, sparse)
+        compress_as_float, m, sizes, dt, checksum, prob_bits, sparse)
     if not bool(success.all()):
         raise RuntimeError("decompression failed")
     return outs

@@ -57,6 +57,7 @@ from ..ops.table import (
     normalize_probs_batched,
     pack_encode_table,
 )
+from ..utils.profiling import span
 
 ANS_MAGIC_VERSION = (ANS_MAGIC << 16) | ANS_VERSION
 ANS_MAGIC_NATIVE_VERSION = (ANS_MAGIC_NATIVE << 16) | ANS_VERSION
@@ -126,88 +127,93 @@ def ans_encode_sections(
     NR = _ceil_div(NB, 4)
     sizes64 = sizes.to(torch.int64)
 
-    # whole blocks: 16 B aligned rows for K8 and K2
-    xp = F.pad(x32, (0, NB * (BLOCK_SIZE // 4) - W))
-    csum = torch.zeros_like(sizes64)
-    if hist is None:
-        rows = xp.view(torch.uint8)
-        hist, csum_k = (byte_hist_plain if plain else byte_hist)(rows, sizes64)
-        if use_checksum:
-            csum = csum_k.to(torch.int64)
-    elif use_checksum:
-        csum = checksum_packed(to_u32(x32), sizes64)
-    totals = sizes64 if hist_totals is None else hist_totals.to(torch.int64)
-    pdf, cdf, magic, shift = normalize_probs_batched(hist, totals, prob_bits)
-    packed = pack_encode_table(pdf, cdf, shift)
-    if native:
-        encode = encode_rows_plain if plain else encode_rows
-    else:
-        encode = encode_blocks_plain if plain else encode_blocks
-    states, streams, num_words = encode(
-        xp, sizes.to(torch.int32), from_u32(packed), from_u32(magic), prob_bits
-    )
+    with span("stage:ans.encode"):
+        # whole blocks: 16 B aligned rows for K8 and K2
+        xp = F.pad(x32, (0, NB * (BLOCK_SIZE // 4) - W))
+        csum = torch.zeros_like(sizes64)
+        if hist is None:
+            rows = xp.view(torch.uint8)
+            hist, csum_k = (byte_hist_plain if plain else byte_hist)(rows, sizes64)
+            if use_checksum:
+                csum = csum_k.to(torch.int64)
+        elif use_checksum:
+            csum = checksum_packed(to_u32(x32), sizes64)
+    with span("stage:ans.table"):
+        totals = sizes64 if hist_totals is None else hist_totals.to(torch.int64)
+        pdf, cdf, magic, shift = normalize_probs_batched(hist, totals, prob_bits)
+        packed = pack_encode_table(pdf, cdf, shift)
+    with span("stage:ans.encode"):
+        if native:
+            encode = encode_rows_plain if plain else encode_rows
+        else:
+            encode = encode_blocks_plain if plain else encode_blocks
+        states, streams, num_words = encode(
+            xp, sizes.to(torch.int32), from_u32(packed), from_u32(magic), prob_bits
+        )
 
-    nb = _ceil_div(sizes64, BLOCK_SIZE)
-    blk = torch.arange(NB, dtype=torch.int64, device=dev)[None, :]
-    live = blk < nb[:, None]
-    if native:
-        # 16 B aligned exclusive prefix per row of 4 blocks; blockWords.y
-        # holds the row start, repeated across the row's blocks
-        nw4 = F.pad(num_words.to(torch.int64), (0, 4 * NR - NB)).reshape(B, NR, 4)
-        seg_words = nw4.sum(dim=2)
-        aligned = (seg_words + 7) // 8 * 8
-        incl = torch.cumsum(aligned, dim=1)
-        seg_prefix = incl - aligned
-        prefix = seg_prefix.repeat_interleave(4, dim=1)[:, :NB]
-        seg = torch.arange(NR, dtype=torch.int64, device=dev)[None, :]
-        seg_live = seg < _ceil_div(nb, 4)[:, None]
-        NSEG, MAXW = NR, MAX_ROW_WORDS32
-    else:
-        # 16 B aligned exclusive prefix of the per-block word counts
-        seg_words = num_words.to(torch.int64)
-        aligned = (seg_words + 7) // 8 * 8
-        incl = torch.cumsum(aligned, dim=1)
-        seg_prefix = prefix = incl - aligned
-        seg, seg_live = blk, live
-        NSEG, MAXW = NB, MAX_BLOCK_WORDS32
-    total_words = incl[:, -1]
+    with span("stage:ans.runs"):
+        nb = _ceil_div(sizes64, BLOCK_SIZE)
+        blk = torch.arange(NB, dtype=torch.int64, device=dev)[None, :]
+        live = blk < nb[:, None]
+        if native:
+            # 16 B aligned exclusive prefix per row of 4 blocks; blockWords.y
+            # holds the row start, repeated across the row's blocks
+            nw4 = F.pad(num_words.to(torch.int64), (0, 4 * NR - NB)).reshape(B, NR, 4)
+            seg_words = nw4.sum(dim=2)
+            aligned = (seg_words + 7) // 8 * 8
+            incl = torch.cumsum(aligned, dim=1)
+            seg_prefix = incl - aligned
+            prefix = seg_prefix.repeat_interleave(4, dim=1)[:, :NB]
+            seg = torch.arange(NR, dtype=torch.int64, device=dev)[None, :]
+            seg_live = seg < _ceil_div(nb, 4)[:, None]
+            NSEG, MAXW = NR, MAX_ROW_WORDS32
+        else:
+            # 16 B aligned exclusive prefix of the per-block word counts
+            seg_words = num_words.to(torch.int64)
+            aligned = (seg_words + 7) // 8 * 8
+            incl = torch.cumsum(aligned, dim=1)
+            seg_prefix = prefix = incl - aligned
+            seg, seg_live = blk, live
+            NSEG, MAXW = NB, MAX_BLOCK_WORDS32
+        total_words = incl[:, -1]
 
-    uncomp_w = (sizes64[:, None] - blk * BLOCK_SIZE).clamp(0, BLOCK_SIZE)
-    zeros = torch.zeros_like(sizes64)
-    hdr8 = torch.stack(
-        [zeros + (ANS_MAGIC_NATIVE_VERSION if native else ANS_MAGIC_VERSION),
-         nb, sizes64, total_words,
-         zeros + (prob_bits | (int(use_checksum) << 4)), csum, zeros, zeros],
-        dim=1,
-    )
-    bw_off, data_off = _layout(nb)
-    comp_bytes = 4 * data_off + 2 * total_words
+        uncomp_w = (sizes64[:, None] - blk * BLOCK_SIZE).clamp(0, BLOCK_SIZE)
+        zeros = torch.zeros_like(sizes64)
+        hdr8 = torch.stack(
+            [zeros + (ANS_MAGIC_NATIVE_VERSION if native else ANS_MAGIC_VERSION),
+             nb, sizes64, total_words,
+             zeros + (prob_bits | (int(use_checksum) << 4)), csum, zeros, zeros],
+            dim=1,
+        )
+        bw_off, data_off = _layout(nb)
+        comp_bytes = 4 * data_off + 2 * total_words
 
-    probs16 = pdf[:, 0::2] | (pdf[:, 1::2] << 16)
-    meta = torch.cat(
-        [from_u32(hdr8), from_u32(probs16), states.reshape(B, NB * WARP_SIZE)],
-        dim=1,
-    )
-    bw_x = (uncomp_w << 16) | num_words.to(torch.int64)
-    pairs = from_u32(torch.stack(
-        [torch.where(live, bw_x, 0), torch.where(live, prefix, 0)], dim=2
-    ).reshape(B, 2 * NB))
+        probs16 = pdf[:, 0::2] | (pdf[:, 1::2] << 16)
+        meta = torch.cat(
+            [from_u32(hdr8), from_u32(probs16), states.reshape(B, NB * WARP_SIZE)],
+            dim=1,
+        )
+        bw_x = (uncomp_w << 16) | num_words.to(torch.int64)
+        pairs = from_u32(torch.stack(
+            [torch.where(live, bw_x, 0), torch.where(live, prefix, 0)], dim=2
+        ).reshape(B, 2 * NB))
 
-    b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
-    dst = torch.cat(
-        [torch.zeros_like(b_ar), bw_off[:, None],
-         data_off[:, None] + (seg_prefix >> 1)], dim=1)
-    src_ref = torch.cat(
-        [torch.full((B, 1), SRC_META), torch.full((B, 1), SRC_PAIRS),
-         torch.full((B, NSEG), SRC_STREAMS)], dim=1).to(torch.int32).to(dev)
-    src_off = torch.cat(
-        [b_ar * meta.shape[1], b_ar * pairs.shape[1],
-         (b_ar * NSEG + seg) * MAXW], dim=1)
-    lens = torch.cat(
-        [(META_WORDS + 32 * nb)[:, None], (2 * nb)[:, None],
-         torch.where(seg_live, (seg_words + 1) >> 1, 0)], dim=1)
-    return EncodedRuns(meta, pairs, streams, dst, src_ref, src_off, lens,
-                       comp_bytes)
+        b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+        dst = torch.cat(
+            [torch.zeros_like(b_ar), bw_off[:, None],
+             data_off[:, None] + (seg_prefix >> 1)], dim=1)
+        with span("sync:ans.run_refs"):
+            src_ref = torch.cat(
+                [torch.full((B, 1), SRC_META), torch.full((B, 1), SRC_PAIRS),
+                 torch.full((B, NSEG), SRC_STREAMS)], dim=1).to(torch.int32).to(dev)
+        src_off = torch.cat(
+            [b_ar * meta.shape[1], b_ar * pairs.shape[1],
+             (b_ar * NSEG + seg) * MAXW], dim=1)
+        lens = torch.cat(
+            [(META_WORDS + 32 * nb)[:, None], (2 * nb)[:, None],
+             torch.where(seg_live, (seg_words + 1) >> 1, 0)], dim=1)
+        return EncodedRuns(meta, pairs, streams, dst, src_ref, src_off, lens,
+                           comp_bytes)
 
 
 def _tight_bytes(S: int) -> int:
@@ -404,12 +410,14 @@ def _ans_decode(comp32, base32, out_capacity, capacities, prob_bits, native,
                 plain, raw_off=None, sec2_off=None, bf16=False):
     """Parse, then one in-place decode of every member; the epilogue as
     ``ops.rans_decode.decode_at``'s. Returns (out, ParsedANS)."""
-    p = _ans_parse(comp32, base32, out_capacity, capacities, prob_bits, native)
-    lut = from_u32(build_decode_table_batched(p.pdf, prob_bits))
-    decode = decode_at_plain if plain else decode_at
-    out = decode(comp32.reshape(-1), p.seg_off, p.seg_len, p.comp_w,
-                 p.uncomp_w, p.state_off, lut, prob_bits, raw_off=raw_off,
-                 sec2_off=sec2_off, bf16=bf16, rows=native)
+    with span("stage:ans.parse"):
+        p = _ans_parse(comp32, base32, out_capacity, capacities, prob_bits, native)
+        lut = from_u32(build_decode_table_batched(p.pdf, prob_bits))
+    with span("stage:ans.decode"):
+        decode = decode_at_plain if plain else decode_at
+        out = decode(comp32.reshape(-1), p.seg_off, p.seg_len, p.comp_w,
+                     p.uncomp_w, p.state_off, lut, prob_bits, raw_off=raw_off,
+                     sec2_off=sec2_off, bf16=bf16, rows=native)
     return out, p
 
 

@@ -67,6 +67,7 @@ from ..ops.float_split import (
     split_wide_hist_plain,
 )
 from ..ops.merge import runs_merge, runs_merge_plain
+from ..utils.profiling import span, spanned
 from .ans import (
     META_WORDS,
     SRC_META,
@@ -129,6 +130,7 @@ def archive_row_words(W32: int, float_type: FloatType) -> int:
     return -(-CWf // 128) * 128
 
 
+@spanned("model:float_codec.float_compress_core")
 def float_compress_core(
     data32: torch.Tensor,
     n: torch.Tensor,
@@ -150,90 +152,97 @@ def float_compress_core(
     """
     ft = _check_type(float_type)
     dev = data32.device
-    # the split takes whole groups of 4 floats: FLOAT_WORD_SIZE words each
-    req = FLOAT_WORD_SIZE[ft]
-    if data32.shape[1] % req:
-        data32 = F.pad(data32, (0, req - data32.shape[1] % req))
-    data32 = data32.contiguous()
-    B, W32 = data32.shape
-    S_cap = floats_capacity(W32, ft)
-    P = FLOAT_NUM_COMP_SEGMENTS[ft]
-    n64 = n.to(device=dev, dtype=torch.int64)
-    if bool(((n64 < 0) | (n64 > S_cap)).any()):
-        raise ValueError(f"float counts must lie in [0, {S_cap}]")
-    n32 = n64.to(torch.int32)
+    with span("stage:float_codec.split"):
+        # the split takes whole groups of 4 floats: FLOAT_WORD_SIZE words each
+        req = FLOAT_WORD_SIZE[ft]
+        if data32.shape[1] % req:
+            data32 = F.pad(data32, (0, req - data32.shape[1] % req))
+        data32 = data32.contiguous()
+        B, W32 = data32.shape
+        S_cap = floats_capacity(W32, ft)
+        P = FLOAT_NUM_COMP_SEGMENTS[ft]
+        n64 = n.to(device=dev, dtype=torch.int64)
+        with span("sync:float_codec.count_check"):
+            bad = bool(((n64 < 0) | (n64 > S_cap)).any())
+        if bad:
+            raise ValueError(f"float counts must lie in [0, {S_cap}]")
+        n32 = n64.to(torch.int32)
 
-    if ft in _FLOAT16_TYPES:
-        split = split16_hist_plain if plain else split16_hist
-        exp, raw, hist, csum_f = split(data32, n32, ft == FloatType.BFLOAT16)
-        secs = [raw]
-    else:
-        if data32.data_ptr() % 16:  # K5 loads 16 B per group of floats
-            data32 = data32.clone()
-        split = split_wide_hist_plain if plain else split_wide_hist
-        exp, sec1, sec2, hist, csum_f = split(data32, n32, ft)
-        secs = [sec1, sec2]
-    # a section run copies a 16 B multiple of words: give every section row
-    # a 16 B multiple of zero-padded width so no run reads into the next row
-    secs = [F.pad(s, (0, -s.shape[1] % 4)) if s.shape[1] % 4 else s
-            for s in secs]
-    csum = to_u32(csum_f) if use_checksum else torch.zeros_like(n64)
+        if ft in _FLOAT16_TYPES:
+            split = split16_hist_plain if plain else split16_hist
+            exp, raw, hist, csum_f = split(data32, n32, ft == FloatType.BFLOAT16)
+            secs = [raw]
+        else:
+            if data32.data_ptr() % 16:  # K5 loads 16 B per group of floats
+                data32 = data32.clone()
+            split = split_wide_hist_plain if plain else split_wide_hist
+            exp, sec1, sec2, hist, csum_f = split(data32, n32, ft)
+            secs = [sec1, sec2]
+        # a section run copies a 16 B multiple of words: give every section row
+        # a 16 B multiple of zero-padded width so no run reads into the next row
+        secs = [F.pad(s, (0, -s.shape[1] % 4)) if s.shape[1] % 4 else s
+                for s in secs]
+        csum = to_u32(csum_f) if use_checksum else torch.zeros_like(n64)
 
     # one encode for every plane: plane p of member b is member p*B + b
     seg = ans_encode_sections(exp, n32.repeat(P), prob_bits, hist=hist,
                               s_bytes=S_cap, native=native, plain=plain)
     seg_bytes = seg.comp_bytes.reshape(P, B)
 
-    sec_w = _section_word_counts(n64, ft)[: len(secs)]
-    # v2 containers hold native members only: classic archives are v1
-    is_al = (n64 >= FLOAT_ALIGN_MIN) & native
-    sec_dst = [torch.where(is_al, 128, 8)]
-    for w in sec_w:
-        sec_dst.append(sec_dst[-1] + torch.where(is_al, _align_section(w), w))
-    plane_dst = [sec_dst.pop()]  # the first ANS archive follows the sections
-    for p in range(P):
-        plane_dst.append(plane_dst[-1] + (seg_bytes[p] >> 2))
-    end = plane_dst.pop()
+    with span("stage:float_codec.assemble"):
+        sec_w = _section_word_counts(n64, ft)[: len(secs)]
+        # v2 containers hold native members only: classic archives are v1
+        is_al = (n64 >= FLOAT_ALIGN_MIN) & native
+        sec_dst = [torch.where(is_al, 128, 8)]
+        for w in sec_w:
+            sec_dst.append(sec_dst[-1] + torch.where(is_al, _align_section(w), w))
+        plane_dst = [sec_dst.pop()]  # the first ANS archive follows the sections
+        for p in range(P):
+            plane_dst.append(plane_dst[-1] + (seg_bytes[p] >> 2))
+        end = plane_dst.pop()
 
-    zeros = torch.zeros_like(n64)
-    first_seg = seg_bytes[0] if P > 1 else zeros
-    hdr = torch.stack(
-        [torch.where(is_al, FLOAT_MAGIC_VERSION2, FLOAT_MAGIC_VERSION), n64,
-         zeros + (int(ft) | (int(use_checksum) << 4)), csum, first_seg, zeros,
-         zeros, zeros],
-        dim=1,
-    )
+        zeros = torch.zeros_like(n64)
+        first_seg = seg_bytes[0] if P > 1 else zeros
+        hdr = torch.stack(
+            [torch.where(is_al, FLOAT_MAGIC_VERSION2, FLOAT_MAGIC_VERSION), n64,
+             zeros + (int(ft) | (int(use_checksum) << 4)), csum, first_seg, zeros,
+             zeros, zeros],
+            dim=1,
+        )
 
-    # one merge places every member's header, raw sections and ANS runs, in
-    # destination order within each member's archive row; the ANS runs
-    # index the first three sources
-    srcs = [None] * 3 + [from_u32(hdr).reshape(-1)] + [s.reshape(-1) for s in secs]
-    srcs[SRC_META] = seg.meta.reshape(-1)
-    srcs[SRC_PAIRS] = seg.pairs.reshape(-1)
-    srcs[SRC_STREAMS] = seg.streams.reshape(-1)
-    CWf = archive_row_words(W32, ft)
-    b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+        # one merge places every member's header, raw sections and ANS runs, in
+        # destination order within each member's archive row; the ANS runs
+        # index the first three sources
+        srcs = [None] * 3 + [from_u32(hdr).reshape(-1)] + [s.reshape(-1) for s in secs]
+        srcs[SRC_META] = seg.meta.reshape(-1)
+        srcs[SRC_PAIRS] = seg.pairs.reshape(-1)
+        srcs[SRC_STREAMS] = seg.streams.reshape(-1)
+        CWf = archive_row_words(W32, ft)
+        b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
 
-    def planes(t):  # [P*B, k] -> [B, P*k], plane-major per member
-        return torch.cat(list(t.reshape(P, B, -1)), dim=1)
+        def planes(t):  # [P*B, k] -> [B, P*k], plane-major per member
+            return torch.cat(list(t.reshape(P, B, -1)), dim=1)
 
-    fixed_ref = torch.tensor([_SRC_HDR] + [_SRC_RAW + i for i in range(len(secs))],
-                             dtype=torch.int32, device=dev)
-    dst = torch.cat([zeros[:, None]] + [d[:, None] for d in sec_dst]
-                    + [planes(torch.cat(plane_dst)[:, None] + seg.dst)], dim=1)
-    ref = torch.cat([fixed_ref.expand(B, -1), planes(seg.src_ref)], dim=1)
-    off = torch.cat([b_ar * 8] + [b_ar * s.shape[1] for s in secs]
-                    + [planes(seg.src_off)], dim=1)
-    lens = torch.cat([zeros[:, None] + 8] + [w[:, None] for w in sec_w]
-                     + [planes(seg.lens)], dim=1)
-    merge = runs_merge_plain if plain else runs_merge
-    out = merge(
-        srcs, (dst + b_ar * CWf).reshape(-1), ref.reshape(-1), off.reshape(-1),
-        lens.reshape(-1), B * CWf,
-    ).reshape(B, CWf)
-    return out, 4 * end
+        with span("sync:float_codec.merge_refs"):
+            fixed_ref = torch.tensor(
+                [_SRC_HDR] + [_SRC_RAW + i for i in range(len(secs))],
+                dtype=torch.int32, device=dev)
+        dst = torch.cat([zeros[:, None]] + [d[:, None] for d in sec_dst]
+                        + [planes(torch.cat(plane_dst)[:, None] + seg.dst)], dim=1)
+        ref = torch.cat([fixed_ref.expand(B, -1), planes(seg.src_ref)], dim=1)
+        off = torch.cat([b_ar * 8] + [b_ar * s.shape[1] for s in secs]
+                        + [planes(seg.src_off)], dim=1)
+        lens = torch.cat([zeros[:, None] + 8] + [w[:, None] for w in sec_w]
+                         + [planes(seg.lens)], dim=1)
+        merge = runs_merge_plain if plain else runs_merge
+        out = merge(
+            srcs, (dst + b_ar * CWf).reshape(-1), ref.reshape(-1), off.reshape(-1),
+            lens.reshape(-1), B * CWf,
+        ).reshape(B, CWf)
+        return out, 4 * end
 
 
+@spanned("model:float_codec.float_decompress_core")
 def float_decompress_core(
     comp32: torch.Tensor,
     base32: torch.Tensor,
@@ -269,39 +278,40 @@ def float_decompress_core(
         fused = ft in _FLOAT16_TYPES
     if fused and ft == FloatType.FLOAT64:
         raise ValueError("fp64 has no fused decode: pass fused=False or None")
-    dev = comp32.device
-    comp32 = comp32.contiguous()
-    B, CW = comp32.shape
-    base = base32.to(device=dev, dtype=torch.int64)
+    with span("stage:float_codec.header"):
+        dev = comp32.device
+        comp32 = comp32.contiguous()
+        B, CW = comp32.shape
+        base = base32.to(device=dev, dtype=torch.int64)
 
-    idx = (base[:, None] + torch.arange(8, dtype=torch.int64, device=dev)).clamp(0, CW - 1)
-    hdr = to_u32(torch.gather(comp32, 1, idx))
-    n = to_i32(hdr[:, 1])
-    csum_arch = hdr[:, 3]
-    first_seg = to_i32(hdr[:, 4])
-    is_al = hdr[:, 0] == FLOAT_MAGIC_VERSION2
-    valid = (
-        ((hdr[:, 0] == FLOAT_MAGIC_VERSION) | is_al)
-        & ((hdr[:, 2] & 0xF) == int(ft))
-        & (n >= 0)
-    )
-    if FLOAT_NUM_COMP_SEGMENTS[ft] > 1:
-        # the second archive must not start before the first
-        valid = valid & (first_seg >= 0)
-    n = torch.where(valid, n, 0)
-    first_seg = torch.where(valid, first_seg, 0)
-    is_al = is_al & valid
-    if capacities is None:
-        capacities = torch.full((B,), out_floats, dtype=torch.int64, device=dev)
-    success = valid & (n <= capacities.to(device=dev, dtype=torch.int64))
+        idx = (base[:, None] + torch.arange(8, dtype=torch.int64, device=dev)).clamp(0, CW - 1)
+        hdr = to_u32(torch.gather(comp32, 1, idx))
+        n = to_i32(hdr[:, 1])
+        csum_arch = hdr[:, 3]
+        first_seg = to_i32(hdr[:, 4])
+        is_al = hdr[:, 0] == FLOAT_MAGIC_VERSION2
+        valid = (
+            ((hdr[:, 0] == FLOAT_MAGIC_VERSION) | is_al)
+            & ((hdr[:, 2] & 0xF) == int(ft))
+            & (n >= 0)
+        )
+        if FLOAT_NUM_COMP_SEGMENTS[ft] > 1:
+            # the second archive must not start before the first
+            valid = valid & (first_seg >= 0)
+        n = torch.where(valid, n, 0)
+        first_seg = torch.where(valid, first_seg, 0)
+        is_al = is_al & valid
+        if capacities is None:
+            capacities = torch.full((B,), out_floats, dtype=torch.int64, device=dev)
+        success = valid & (n <= capacities.to(device=dev, dtype=torch.int64))
 
-    s1w, s2w = _section_word_counts(n, ft)
-    o_s1 = torch.where(is_al, 128, 8)
-    o_s2 = o_s1 + torch.where(is_al, _align_section(s1w), s1w)
-    ans_base = base + o_s2 + torch.where(is_al, _align_section(s2w), s2w)
-    b_ar = torch.arange(B, dtype=torch.int64, device=dev)
-    abs_base = b_ar * CW + base
-    E = max(-(-out_floats // 4), 1)
+        s1w, s2w = _section_word_counts(n, ft)
+        o_s1 = torch.where(is_al, 128, 8)
+        o_s2 = o_s1 + torch.where(is_al, _align_section(s1w), s1w)
+        ans_base = base + o_s2 + torch.where(is_al, _align_section(s2w), s2w)
+        b_ar = torch.arange(B, dtype=torch.int64, device=dev)
+        abs_base = b_ar * CW + base
+        E = max(-(-out_floats // 4), 1)
 
     if fused:
         # the decode reads the raw sections in place: per 4096-float block
@@ -335,16 +345,17 @@ def float_decompress_core(
         # K7 or K13 reads the raw sections from the archive in place, below
         # each member's count, which is 0 for a failed member: no staging,
         # no select
-        count = torch.where(success, n, 0)
-        if ft in _FLOAT16_TYPES:
-            join16 = join16_at_plain if plain else join16_at
-            words32 = join16(comp32, planes[0], abs_base + o_s1, count, ft)
-            # 2E words, cut to ceil(out_floats / 2)
-            words32 = words32[:, : -(-out_floats // 2)].contiguous()
-        else:
-            join = join_wide_at_plain if plain else join_wide_at
-            words32 = join(comp32, planes, abs_base + o_s1, abs_base + o_s2,
-                           count, ft)
+        with span("stage:float_codec.join"):
+            count = torch.where(success, n, 0)
+            if ft in _FLOAT16_TYPES:
+                join16 = join16_at_plain if plain else join16_at
+                words32 = join16(comp32, planes[0], abs_base + o_s1, count, ft)
+                # 2E words, cut to ceil(out_floats / 2)
+                words32 = words32[:, : -(-out_floats // 2)].contiguous()
+            else:
+                join = join_wide_at_plain if plain else join_wide_at
+                words32 = join(comp32, planes, abs_base + o_s1, abs_base + o_s2,
+                               count, ft)
         return (words32, success, n, csum_arch,
                 _decoded_checksum(words32, n, ft, verify_checksum))
 
@@ -359,9 +370,11 @@ def _decoded_checksum(words32, n, ft: FloatType, verify: bool):
     """XOR of the first n floats' bytes of each decoded row, or zeros."""
     if not verify:
         return torch.zeros_like(n)
-    return checksum_packed(to_u32(words32), n * FLOAT_WORD_SIZE[ft])
+    with span("stage:float_codec.verify"):
+        return checksum_packed(to_u32(words32), n * FLOAT_WORD_SIZE[ft])
 
 
+@spanned("model:float_codec.float_compress_padded")
 def float_compress_padded(
     data32: torch.Tensor,
     n: torch.Tensor,

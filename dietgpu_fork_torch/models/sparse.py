@@ -51,6 +51,7 @@ from ..ops.sparse_stream import (
     word_ranks,
     word_ranks_plain,
 )
+from ..utils.profiling import span, spanned
 from .float_codec import _check_type, float_compress_core, float_decompress_core
 
 
@@ -77,37 +78,47 @@ def sparse_float_compress_core(
     B, W32 = data32.shape
     S_cap = floats_capacity(W32, ft)
     n64 = n.to(device=dev, dtype=torch.int64)
-    if bool(((n64 < 0) | (n64 > S_cap)).any()):
+    with span("sync:sparse.count_check"):
+        bad = bool(((n64 < 0) | (n64 > S_cap)).any())
+    if bad:
         raise ValueError(f"float counts must lie in [0, {S_cap}]")
 
-    pack = pack_bitmap_plain if plain else pack_bitmap
-    bm32 = pack(data32, n64.to(torch.int32), ft)
-    ranks = (word_ranks_plain if plain else word_ranks)(bm32, n64)
-    compact = compact_by_bitmap_plain if plain else compact_by_bitmap
-    packed, nnz = compact(data32, bm32, ranks, ft)
+    with span("stage:sparse.bitmap"):
+        pack = pack_bitmap_plain if plain else pack_bitmap
+        bm32 = pack(data32, n64.to(torch.int32), ft)
+    with span("stage:sparse.ranks"):
+        ranks = (word_ranks_plain if plain else word_ranks)(bm32, n64)
+    with span("stage:sparse.compact"):
+        compact = compact_by_bitmap_plain if plain else compact_by_bitmap
+        packed, nnz = compact(data32, bm32, ranks, ft)
     dense32, dense_bytes = float_compress_core(
         packed, nnz, ft, prob_bits, use_checksum, native, plain)
 
-    # [header | bitmap | dense archive] per member, in one merge
-    BW, DW = bm32.shape[1], dense32.shape[1]
-    CWs = 4 + BW + DW
-    zeros = torch.zeros_like(n64)
-    hdr = from_u32(torch.stack([n64, zeros, zeros, zeros], dim=1))
-    bmw = bitmap_words(n64)
-    b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
-    dst = b_ar * CWs + torch.stack([zeros, zeros + 4, 4 + bmw], dim=1)
-    ref = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev).expand(B, -1)
-    off = b_ar * torch.tensor([4, BW, DW], device=dev)
-    lens = torch.stack([zeros + 4, bmw, dense_bytes >> 2], dim=1)
-    merge = runs_merge_plain if plain else runs_merge
-    out = merge(
-        [hdr.reshape(-1), bm32.reshape(-1), dense32.reshape(-1)],
-        dst.reshape(-1), ref.reshape(-1), off.reshape(-1), lens.reshape(-1),
-        B * CWs,
-    ).reshape(B, CWs)
-    return out, 16 + 4 * bmw + dense_bytes
+    with span("stage:sparse.assemble"):
+        # [header | bitmap | dense archive] per member, in one merge
+        BW, DW = bm32.shape[1], dense32.shape[1]
+        CWs = 4 + BW + DW
+        zeros = torch.zeros_like(n64)
+        hdr = from_u32(torch.stack([n64, zeros, zeros, zeros], dim=1))
+        bmw = bitmap_words(n64)
+        b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+        dst = b_ar * CWs + torch.stack([zeros, zeros + 4, 4 + bmw], dim=1)
+        with span("sync:sparse.merge_refs"):
+            ref = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev).expand(B, -1)
+        with span("sync:sparse.merge_strides"):
+            strides = torch.tensor([4, BW, DW], device=dev)
+        off = b_ar * strides
+        lens = torch.stack([zeros + 4, bmw, dense_bytes >> 2], dim=1)
+        merge = runs_merge_plain if plain else runs_merge
+        out = merge(
+            [hdr.reshape(-1), bm32.reshape(-1), dense32.reshape(-1)],
+            dst.reshape(-1), ref.reshape(-1), off.reshape(-1), lens.reshape(-1),
+            B * CWs,
+        ).reshape(B, CWs)
+        return out, 16 + 4 * bmw + dense_bytes
 
 
+@spanned("model:sparse.sparse_float_decompress_core")
 def sparse_float_decompress_core(
     comp32: torch.Tensor,
     out_floats: int,
@@ -132,37 +143,41 @@ def sparse_float_decompress_core(
     dev = comp32.device
     comp32 = comp32.contiguous()
     B, CW = comp32.shape
-    # the header has no magic: a count whose sections cannot fit the row
-    # fails the member before it sizes anything
-    n = comp32[:, 0].to(torch.int64)
-    sane = (n >= 0) & (4 + bitmap_words(n.clamp(min=0)) + 4 <= CW)
-    n = torch.where(sane, n, 0)
-    if capacities is None:
-        capacities = torch.full((B,), out_floats, dtype=torch.int64, device=dev)
-    success = sane & (n <= capacities.to(device=dev, dtype=torch.int64))
+    with span("stage:sparse.header"):
+        # the header has no magic: a count whose sections cannot fit the row
+        # fails the member before it sizes anything
+        n = comp32[:, 0].to(torch.int64)
+        sane = (n >= 0) & (4 + bitmap_words(n.clamp(min=0)) + 4 <= CW)
+        n = torch.where(sane, n, 0)
+        if capacities is None:
+            capacities = torch.full((B,), out_floats, dtype=torch.int64, device=dev)
+        success = sane & (n <= capacities.to(device=dev, dtype=torch.int64))
 
-    bmw = bitmap_words(n)
-    BW = max(bitmap_words(out_floats), 1)
-    b_ar = torch.arange(B, dtype=torch.int64, device=dev)
-    merge = runs_merge_plain if plain else runs_merge
-    bm32 = merge(
-        [comp32.reshape(-1)], b_ar * BW,
-        torch.zeros(B, dtype=torch.int32, device=dev), b_ar * CW + 4,
-        bmw.clamp(max=BW), B * BW,
-    ).reshape(B, BW)
+        bmw = bitmap_words(n)
+        BW = max(bitmap_words(out_floats), 1)
+        b_ar = torch.arange(B, dtype=torch.int64, device=dev)
+        merge = runs_merge_plain if plain else runs_merge
+        bm32 = merge(
+            [comp32.reshape(-1)], b_ar * BW,
+            torch.zeros(B, dtype=torch.int32, device=dev), b_ar * CW + 4,
+            bmw.clamp(max=BW), B * BW,
+        ).reshape(B, BW)
     nz32, dsuccess, _, csum_arch, csum_got = float_decompress_core(
         comp32, 4 + bmw, out_floats, ft, prob_bits, capacities,
         verify_checksum, native, plain)
     success = success & dsuccess
 
-    # a failed member expands nothing: it decodes to zeros
-    n_ok = torch.where(success, n, 0)
-    ranks = (word_ranks_plain if plain else word_ranks)(bm32, n_ok)
-    expand = expand_by_bitmap_plain if plain else expand_by_bitmap
-    words32 = expand(nz32, bm32, ranks, n_ok, out_floats, ft)
+    with span("stage:sparse.ranks"):
+        # a failed member expands nothing: it decodes to zeros
+        n_ok = torch.where(success, n, 0)
+        ranks = (word_ranks_plain if plain else word_ranks)(bm32, n_ok)
+    with span("stage:sparse.expand"):
+        expand = expand_by_bitmap_plain if plain else expand_by_bitmap
+        words32 = expand(nz32, bm32, ranks, n_ok, out_floats, ft)
     return words32, success, n, csum_arch, csum_got
 
 
+@spanned("model:sparse.sparse_float_compress_padded")
 def sparse_float_compress_padded(
     data32: torch.Tensor,
     n: torch.Tensor,

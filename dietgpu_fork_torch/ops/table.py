@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from ..core.constants import NUM_SYMBOLS
+from ..utils.profiling import span
 from .bitops import M32, clz32, udiv_u43_by_u32
 
 
@@ -34,10 +35,9 @@ def normalize_probs_batched(
 
     # float32 first pass, truncating cast (GpuANSStatistics.cuh:215-218)
     safe_tot = torch.where(totals > 0, totals, 1).to(torch.float32)
-    q = (
-        torch.tensor(float(target), dtype=torch.float32, device=dev)
-        * (counts.to(torch.float32) / safe_tot[:, None])
-    ).to(torch.int64)
+    with span("sync:table.target"):
+        target32 = torch.tensor(float(target), dtype=torch.float32, device=dev)
+    q = (target32 * (counts.to(torch.float32) / safe_tot[:, None])).to(torch.int64)
     q = torch.where((counts > 0) & (q == 0), 1, q)
     q = torch.where(nonempty, q, 0)
     diff = target - q.sum(dim=1)
@@ -57,7 +57,7 @@ def normalize_probs_batched(
     # broken by symbol id (GpuANSStatistics.cuh:274-315), by ascending rank
     # of the key (prob << 16 | sym) among the entries > 1
     d = (-diff).clamp(min=0)
-    while bool((d > 0).any()):
+    while _any_left(d):
         gt1 = prob > 1
         num_gt1 = gt1.sum(dim=1)
         it = torch.minimum(d, num_gt1)
@@ -78,6 +78,12 @@ def normalize_probs_batched(
     a_hi = ((1 << shift) - pdf) & M32
     magic = torch.where(nz, (udiv_u43_by_u32(a_hi, safe_pdf) + 1) & M32, 0)
     return pdf, cdf, magic, shift
+
+
+def _any_left(d: torch.Tensor) -> bool:
+    """Whether a row has excess left: one read to the host a round."""
+    with span("sync:table.normalize_round"):
+        return bool((d > 0).any())
 
 
 def pack_encode_table(pdf, cdf, shift):

@@ -11,7 +11,8 @@ this module is imported.
 Each wrapper takes CUDA tensors that the op modules (``ops/*.py``) have
 already checked, allocates its outputs with torch, launches on the current
 stream of the tensors' device, raises if the launch failed, and adds one to
-its entry of ``launches``.
+its entry of ``launches``. Each is spanned ``kernel:<its name>`` while a
+profiler runs (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..core.constants import (
     FloatType,
     sparse_bitmap_bytes,
 )
+from ..utils.profiling import spanned
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -216,6 +218,7 @@ def _batch_ok(B: int) -> None:
         raise ValueError(f"batch {B} outside the kernels' grid range [1, 65535]")
 
 
+@spanned("kernel:split16_hist")
 def split16_hist(data32: torch.Tensor, n: torch.Tensor, bf16: bool):
     """K1 launch; arguments as ``ops.float_split.split16_hist``."""
     _cuda_only(data32, n)
@@ -261,12 +264,14 @@ def _encode(fn: str, counter: str, x32, sizes, packed, magic, prob_bits: int,
     return states, streams, num_words
 
 
+@spanned("kernel:encode_rows")
 def encode_rows(x32, sizes, packed, magic, prob_bits: int):
     """K2 launch, row layout; arguments as ``ops.rans_encode.encode_rows``."""
     return _encode("dgt_rans_encode_rows", "rans_encode_rows", x32, sizes,
                    packed, magic, prob_bits, classic=False)
 
 
+@spanned("kernel:encode_blocks")
 def encode_blocks(x32, sizes, packed, magic, prob_bits: int):
     """K2 launch, classic layout; arguments as
     ``ops.rans_encode.encode_blocks``."""
@@ -286,6 +291,7 @@ def encode_ctas_per_sm(classic: bool) -> int:
 MAX_MERGE_SOURCES = 8  # K3 takes its sources by value
 
 
+@spanned("kernel:runs_merge")
 def runs_merge(srcs: Sequence[torch.Tensor], dst, ref, off, lens, out_len: int):
     """K3 launch; arguments as ``ops.merge.runs_merge``. The source
     pointers and lengths go to the kernel by value: no device copy."""
@@ -350,31 +356,37 @@ def _decode(counter: str, epi: int, classic: bool, words, seg_off, seg_len,
 # prob_bits, raw_off, sec2_off, bf16), with None for the offsets their
 # epilogue does not read.
 
+@spanned("kernel:decode_rows")
 def decode_rows(*args):
     """K6 launch, row layout."""
     return _decode("rans_decode_rows", _BYTES, False, *args)
 
 
+@spanned("kernel:decode_blocks")
 def decode_blocks(*args):
     """K6 launch, classic layout."""
     return _decode("rans_decode_blocks", _BYTES, True, *args)
 
 
+@spanned("kernel:decode_join16")
 def decode_join16(*args):
     """K4 launch, row layout."""
     return _decode("rans_decode_join16", _JOIN16, False, *args)
 
 
+@spanned("kernel:decode_join16_blocks")
 def decode_join16_blocks(*args):
     """K4 launch, classic layout."""
     return _decode("rans_decode_join16_blocks", _JOIN16, True, *args)
 
 
+@spanned("kernel:decode_join32")
 def decode_join32(*args):
     """K12 launch, row layout."""
     return _decode("rans_decode_join32", _JOIN32, False, *args)
 
 
+@spanned("kernel:decode_join32_blocks")
 def decode_join32_blocks(*args):
     """K12 launch, classic layout."""
     return _decode("rans_decode_join32_blocks", _JOIN32, True, *args)
@@ -387,6 +399,7 @@ def _aligned(t: torch.Tensor, nbytes: int, name: str) -> None:
         raise ValueError(f"{name} rows must start on {nbytes} B boundaries")
 
 
+@spanned("kernel:split_wide_hist")
 def split_wide_hist(data32: torch.Tensor, n: torch.Tensor, float_type):
     """K5 launch; arguments as ``ops.float_split.split_wide_hist``."""
     _cuda_only(data32, n)
@@ -413,6 +426,7 @@ def split_wide_hist(data32: torch.Tensor, n: torch.Tensor, float_type):
     return exp, sec1, sec2, hist, csum
 
 
+@spanned("kernel:split16")
 def split16(data32: torch.Tensor, bf16: bool):
     """K1 launch without histogram; arguments as ``ops.float_split.split16``."""
     _cuda_only(data32)
@@ -430,6 +444,7 @@ def split16(data32: torch.Tensor, bf16: bool):
     return exp, raw
 
 
+@spanned("kernel:split_wide")
 def split_wide(data32: torch.Tensor, float_type):
     """K5 launch without histograms; arguments as
     ``ops.float_split.split_wide``."""
@@ -488,6 +503,7 @@ def _join(counter: str, float_type, planes, sec1, sec2, nwords: int, s1, s2,
 _NO_CLAMP = (1 << 63) - 1
 
 
+@spanned("kernel:join16_rows")
 def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
     """K13 launch, tensor mode; arguments as ``ops.float_split.join16_rows``."""
     _cuda_only(exp, raw)
@@ -496,6 +512,7 @@ def join16_rows(exp: torch.Tensor, raw: torch.Tensor, bf16: bool):
                  None)
 
 
+@spanned("kernel:join16_at")
 def join16_at(comp32, plane, r_off, count, float_type):
     """K13 launch, archive mode; arguments as ``ops.float_split.join16_at``."""
     _cuda_only(comp32, plane, r_off, count)
@@ -503,6 +520,7 @@ def join16_at(comp32, plane, r_off, count, float_type):
                  comp32.numel(), r_off, r_off, count)
 
 
+@spanned("kernel:join_wide")
 def join_wide(planes, sec1, sec2, float_type):
     """K7 launch, tensor mode; arguments as ``ops.float_split.join_wide``."""
     _cuda_only(*planes, sec1, sec2)
@@ -510,6 +528,7 @@ def join_wide(planes, sec1, sec2, float_type):
                  sec1.stride(0), sec2.stride(0), None)
 
 
+@spanned("kernel:join_wide_at")
 def join_wide_at(comp32, planes, s1_off, s2_off, count, float_type):
     """K7 launch, archive mode; arguments as
     ``ops.float_split.join_wide_at``."""
@@ -518,6 +537,7 @@ def join_wide_at(comp32, planes, s1_off, s2_off, count, float_type):
                  comp32.numel(), s1_off, s2_off, count)
 
 
+@spanned("kernel:byte_hist")
 def byte_hist(rows: torch.Tensor, sizes: torch.Tensor):
     """K8 launch; arguments as ``ops.histogram.byte_hist``, with rows
     16 B aligned and of a 16 B multiple, and sizes int32 in [0, S]."""
@@ -546,6 +566,7 @@ def _rows_i32(t: torch.Tensor, shape, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+@spanned("kernel:pack_bitmap")
 def pack_bitmap(data32: torch.Tensor, n: torch.Tensor, float_type):
     """K9 launch; arguments as ``ops.bitmap_pack.pack_bitmap``, with n
     int32."""
@@ -570,6 +591,7 @@ def pack_bitmap(data32: torch.Tensor, n: torch.Tensor, float_type):
 RANK_TILE_WORDS = 4096  # bitmap words a CTA of K15 scans (csrc/word_ranks.cu)
 
 
+@spanned("kernel:word_ranks")
 def word_ranks(bm32: torch.Tensor, n: torch.Tensor):
     """K15 launch (two passes behind one C entry); arguments as
     ``ops.sparse_stream.word_ranks``, with n int64."""
@@ -596,6 +618,7 @@ def word_ranks(bm32: torch.Tensor, n: torch.Tensor):
     return out
 
 
+@spanned("kernel:compact_by_bitmap")
 def compact_by_bitmap(data32: torch.Tensor, bm32: torch.Tensor,
                       ranks: torch.Tensor, float_type):
     """K10 launch; arguments and results as
@@ -623,6 +646,7 @@ def compact_by_bitmap(data32: torch.Tensor, bm32: torch.Tensor,
     return out, ranks[:, -1]
 
 
+@spanned("kernel:expand_by_bitmap")
 def expand_by_bitmap(nz32: torch.Tensor, bm32: torch.Tensor,
                      ranks: torch.Tensor, n: torch.Tensor, out_floats: int,
                      float_type):
@@ -653,6 +677,7 @@ def expand_by_bitmap(nz32: torch.Tensor, bm32: torch.Tensor,
     return out
 
 
+@spanned("kernel:chunked_lookup")
 def chunked_lookup(tables: torch.Tensor, idx: torch.Tensor):
     """K14 launch, one table per member; arguments as
     ``ops.lookup.chunked_lookup``."""
@@ -672,6 +697,7 @@ def chunked_lookup(tables: torch.Tensor, idx: torch.Tensor):
     return out
 
 
+@spanned("kernel:rowwise_lookup")
 def rowwise_lookup(tables: torch.Tensor, idx: torch.Tensor):
     """K14 launch, one table per row; arguments as
     ``ops.lookup.rowwise_lookup``."""
