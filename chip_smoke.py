@@ -90,7 +90,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    the row, sections at word phases 1-3 with v1 and v2 offsets, output rows
    8 B past a 16 B boundary) and K8 (``phase_hist_edges``: one-valued rows
    of 65535, 65536 and 65537 bytes and two tiles, a ragged batch of sizes
-   and a row width no multiple of 16); checks that a core or 16-bit
+   and a row width no multiple of 16), K8's checksum-only form against the
+   torch folds (``phase_checksum_edges``: the decoded rows' widths and
+   strides, 16-bit, fp32, fp64 and raw, rows 4-12 B past a 16 B boundary,
+   sizes 0, 1, 15, 16, 17, the row and past it); checks that a core or 16-bit
    two-pass round trip makes at most ``K3_MAX_LAUNCHES`` K3 launches
    (phase 3: the compress merge);
    round-trips a ragged bf16 batch of 128 members and ragged fp32 and
@@ -105,7 +108,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 6. times compress and decompress of each main path (3 warm-ups, median of
    10) on the kernel path, and the all-plain path (median of 3); each
    decode formulation in turns with the default one on the same archive;
-   each function of phase P on its own, with its raw and wire MiB.
+   K8's checksum-only form at the sparse fp64 verify's shape (5 rows of
+   30M words, about 7.5M live fp64 each) beside its bound and the torch
+   fold it replaces (``time_checksum_form``); each function of phase P on
+   its own, with its raw and wire MiB.
 
 ``python3 chip_smoke.py --profile`` instead profiles each main path's
 compress and decompress, each decode formulation's decompress, each S
@@ -165,7 +171,8 @@ from dietgpu_fork_torch.ops.bitmap_pack import (
     pack_bitmap,
     pack_bitmap_plain,
 )
-from dietgpu_fork_torch.ops.bitops import from_u32
+from dietgpu_fork_torch.ops.bitops import from_u32, to_u32
+from dietgpu_fork_torch.ops.checksum import checksum_batched, checksum_packed
 from dietgpu_fork_torch.ops.float_split import (
     join16_at,
     join16_at_plain,
@@ -185,7 +192,7 @@ from dietgpu_fork_torch.ops.float_split import (
     split_wide_hist_plain,
     split_wide_plain,
 )
-from dietgpu_fork_torch.ops.histogram import byte_hist, byte_hist_plain
+from dietgpu_fork_torch.ops.histogram import byte_hist, byte_hist_plain, checksum_rows
 from dietgpu_fork_torch.ops.lookup import (
     ROWWISE_MAX_K,
     _check_lookup_args,
@@ -374,6 +381,19 @@ HIST_EDGE_CASES = ("0x00", "0x3f", "ragged")
 HIST_EDGE_ONE_SIZES = (65535, 65536, 65537, 2 * 65535, 2 * 65536, 2 * 65536 + 48)
 HIST_EDGE_RAGGED = (0, 1, 15, 17, 4097, 65551, 131071, 3 * 65536 + 5,
                     3 * 65536 + 99)
+# K8's checksum-only form (``checksum_edge_inputs``): rows read in place as
+# the decoded rows lie, (name, row bytes, row stride, bytes from a 16 B
+# boundary to row 0): 16-bit words32 rows (4 ceil(n / 2) bytes: 13 and
+# 200003 floats), fp32 (16E) and fp64 (32E) rows within and past a 64 KiB
+# chunk, raw ANS rows at odd capacities in wider rows, and rows 4, 8 and
+# 12 bytes past a 16 B boundary. Each row takes one size of
+# CSUM_EDGE_SIZES ("full" is the row, "past" 9 bytes past it).
+CSUM_EDGE_ROWS = (("16bit-13", 28, 28, 0), ("16bit-200003", 400008, 400008, 0),
+                  ("fp32", 64, 64, 0), ("fp32-wide", 16 * 65539, 16 * 65539, 0),
+                  ("fp64", 128, 128, 0), ("raw-45", 45, 48, 0),
+                  ("raw-200003", 200003, 200006, 0), ("off4", 131075, 131079, 4),
+                  ("off8", 65536, 65544, 8), ("off12", 3 * 65536 + 7, 3 * 65536 + 9, 12))
+CSUM_EDGE_SIZES = (0, 1, 15, 16, 17, "full", "past")
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -415,7 +435,9 @@ KERNELS = [
     ("byte_hist", "byte_hist", byte_hist_plain,
      "dietgpu_fork_torch/csrc/byte_hist.cu",
      ("ops/pallas/histogram_mxu.py:113", "ops/pallas/histogram_mxu.py:93"),
-     (P_B, P_CR, P_TAB)),
+     # the histogram form on raw ANS encodes; the checksum-only form on
+     # every decompress that verifies its bytes
+     (P_A, P_B, P_CF, P_CR, P_C32, P_TAB) + P_S),
     ("encode_blocks", "rans_encode_blocks", encode_blocks_plain,
      "dietgpu_fork_torch/csrc/rans_encode_rows.cu",
      ("ops/pallas/rans_encode_fused.py:305",
@@ -576,6 +598,8 @@ def library_call(wname: str, args):
     """One PyTorch call computing the kernel's function on the recorded
     inputs, set up outside the timing, or None where there is none."""
     if wname == "byte_hist":
+        if len(args) > 2:  # the checksum-only form: no library call
+            return None
         rows, sizes = args
         one = [rows[b, : int(s)] for b, s in enumerate(sizes.tolist())]
         return lambda: [torch.bincount(r, minlength=256) for r in one]
@@ -674,6 +698,8 @@ def as_tuple(x):
 def max_abs_err(a, b) -> int:
     err = 0
     for x, y in zip(as_tuple(a), as_tuple(b)):
+        if x is None and y is None:  # K8's checksum-only form: no histogram
+            continue
         check(x.shape == y.shape and x.dtype == y.dtype, "kernel/plain shapes")
         if x.numel():
             d = (x.to(torch.int64) - y.to(torch.int64)).abs().max().item()
@@ -1950,6 +1976,79 @@ def hist_edge_inputs(case: str, dev):
     return rows, torch.tensor(sizes, dtype=torch.int32, device=dev)
 
 
+def checksum_edge_inputs(case, dev):
+    """(rows uint8[B, W], a view of rows ``stride`` bytes apart starting
+    ``off`` bytes past a 16 B boundary; sizes int64[B], one of
+    CSUM_EDGE_SIZES a row) for the CSUM_EDGE_ROWS entry ``case``, random
+    bytes on dev."""
+    _, W, stride, off = next(r for r in CSUM_EDGE_ROWS if r[0] == case)
+    B = len(CSUM_EDGE_SIZES)
+    g = torch.Generator(device=dev)
+    g.manual_seed(W)
+    buf = torch.randint(0, 256, (16 + B * stride,), generator=g,
+                        dtype=torch.uint8, device=dev)
+    rows = buf[off: off + B * stride].view(B, stride)[:, :W]
+    sizes = [W if s == "full" else W + 9 if s == "past" else s
+             for s in CSUM_EDGE_SIZES]
+    return rows, torch.tensor(sizes, dtype=torch.int64, device=dev)
+
+
+def phase_checksum_edges(dev):
+    """K8's checksum-only form (``checksum_rows`` on the card) against the
+    torch folds ``checksum_batched`` and, on rows of whole aligned words,
+    ``checksum_packed``, bit for bit, on ``checksum_edge_inputs``: one
+    launch a case, on the rows in place."""
+    for case, W, _, off in CSUM_EDGE_ROWS:
+        rows, sizes = checksum_edge_inputs(case, dev)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        got = checksum_rows(rows, sizes)
+        torch.cuda.synchronize()
+        check(K.launches["byte_hist"] == 1 and sum(K.launches.values()) == 1,
+              f"checksum edge {case}: launches {K.launches}")
+        check(torch.equal(got, checksum_batched(rows, sizes)),
+              f"checksum edge {case}: K8 differs from checksum_batched")
+        if W % 4 == 0 and off % 4 == 0 and rows.stride(0) % 4 == 0:
+            words = to_u32(rows.contiguous().view(torch.int32))
+            check(torch.equal(got, checksum_packed(words, sizes)),
+                  f"checksum edge {case}: K8 differs from checksum_packed")
+        print(f"checksum edges {case}: K8 checksum-only, rows of {W} bytes "
+              f"{rows.stride(0)} apart, {off} past 16 B, sizes "
+              f"{sizes.tolist()}: equal to the folds")
+
+
+def time_checksum_form(dev, card: str) -> None:
+    """K8's checksum-only form at sparse_fp64.b5x15m's verify: 5 decoded
+    rows of 30M words (8E, E = 3.75M), about 7.5M live fp64 each; per call,
+    the mean of 20 calls in a row by CUDA events, beside its bound (the
+    live bytes read once) and the torch fold it replaces."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    E = -(-S_N // 4)
+    words32 = torch.randint(-2**31, 2**31 - 1, (S_COUNT, 8 * E), generator=g,
+                            dtype=torch.int32, device=dev)
+    nnz = torch.tensor([7_500_000 + 997 * b for b in range(S_COUNT)],
+                       dtype=torch.int64, device=dev)
+    nbytes = 8 * nnz
+    rows = words32.view(torch.uint8)
+    want = checksum_packed(to_u32(words32), nbytes)
+    check(torch.equal(checksum_rows(rows, nbytes), want),
+          "b5x15m-shape checksum: K8 differs from checksum_packed")
+    reps = 20
+    k8 = cuda_ms(lambda: [K.byte_hist(rows, nbytes, False) for _ in range(reps)],
+                 2, 5) / reps
+    op = cuda_ms(lambda: [checksum_rows(rows, nbytes) for _ in range(reps)],
+                 2, 5) / reps
+    fold = cuda_ms(lambda: checksum_packed(to_u32(words32), nbytes), 1, 3)
+    b_ms = (int(nbytes.sum()) + 16 * S_COUNT) / HBM_BYTES_PER_S * 1e3
+    print(f"K8 checksum-only at b5x15m's verify ({S_COUNT} rows of {8 * E} "
+          f"words, {int(nbytes.sum())} live bytes): kernel {k8:.4f} ms, "
+          f"checksum_rows {op:.4f} ms, bound {b_ms:.4f} ms "
+          f"({100 * b_ms / k8:.1f}% of it), the torch fold it replaces "
+          f"{fold:.3f} ms ({card})")
+    del words32, rows, want
+
+
 def phase_hist_edges(dev):
     """K8 against its plain version, bit for bit, on ``hist_edge_inputs``,
     launched once a case; a one-valued row's histogram holds its size in
@@ -2135,8 +2234,9 @@ def hold_kernels(name: str, calls, report) -> None:
         plain_ms = sum(cuda_ms(lambda a=a: plain_fn(*a), 1, 3)
                        for a, _ in calls[wname])
         b_ms = sum(bound_ms(wname, a, out) for a, out in calls[wname])
-        libs = [library_call(wname, a) for a, _ in calls[wname]]
-        lib_ms = (None if libs[0] is None
+        libs = [f for f in (library_call(wname, a) for a, _ in calls[wname])
+                if f is not None]
+        lib_ms = (None if not libs
                   else sum(cuda_ms(f, 3, 10) for f in libs))
         del libs
         print(f"{wname} [{name}]: {len(calls[wname])} call(s), kernel "
@@ -2352,6 +2452,7 @@ def run() -> int:
     phase_split16_edges(dev)
     phase_join16_edges(dev)
     phase_hist_edges(dev)
+    phase_checksum_edges(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)
     ragged_batch(FP64, 64, 300, dev)
@@ -2386,6 +2487,8 @@ def run() -> int:
         for k, ms in t.items():
             print(f"{mp.name} {k}: {ms:.3f} ms, {gb / (ms / 1e3):.3f} GB/s "
                   f"({mp.raw_bytes / 2**20:.1f} MiB, median; {card})")
+
+    time_checksum_form(dev, card)
 
     # P: each function timed on its own; the wire is a collective's words
     # moved by this rank, the archives' bytes for the sharded codecs

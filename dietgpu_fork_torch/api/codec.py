@@ -59,7 +59,7 @@ from ..models.sparse import (
 )
 from ..ops.bitmap_pack import bitmap_words
 from ..ops.bitops import to_u32
-from ..ops.checksum import checksum_batched
+from ..ops.histogram import checksum_rows
 from ..ops.merge import runs_merge
 from ..runtime import stack_memory as sm
 from ..utils.profiling import span, spanned
@@ -434,7 +434,7 @@ def _decode_rows(compress_as_float, m, cap, caps, dtype, checksum, prob_bits,
             native = detect_native_layout(False, m)
         rows, success, sizes, ca = ans_decode_padded(
             m, max(cap, 1), prob_bits, caps_t, native)
-        cg = checksum_batched(rows, sizes) if checksum else None
+        cg = checksum_rows(rows, sizes) if checksum else None
         temp = sm.ans_decode_temp_size(B, prob_bits)
     status = _checksum_status(success, ca, cg) if checksum else None
     return rows, sizes, success, status, temp, ft

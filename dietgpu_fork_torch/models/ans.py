@@ -38,7 +38,7 @@ from ..core.constants import (
 )
 from ..ops.bitops import from_u32, to_i32, to_u32
 from ..ops.checksum import checksum_packed
-from ..ops.histogram import byte_hist, byte_hist_plain
+from ..ops.histogram import byte_hist, byte_hist_plain, checksum_rows
 from ..ops.merge import runs_merge, runs_merge_plain
 from ..ops.rans_decode import (
     BLOCK_STREAM_CAP,
@@ -131,13 +131,14 @@ def ans_encode_sections(
         # whole blocks: 16 B aligned rows for K8 and K2
         xp = F.pad(x32, (0, NB * (BLOCK_SIZE // 4) - W))
         csum = torch.zeros_like(sizes64)
+        rows = xp.view(torch.uint8)
         if hist is None:
-            rows = xp.view(torch.uint8)
             hist, csum_k = (byte_hist_plain if plain else byte_hist)(rows, sizes64)
             if use_checksum:
                 csum = csum_k.to(torch.int64)
         elif use_checksum:
-            csum = checksum_packed(to_u32(x32), sizes64)
+            csum = (checksum_packed(to_u32(x32), sizes64) if plain
+                    else checksum_rows(rows, sizes64))
     with span("stage:ans.table"):
         totals = sizes64 if hist_totals is None else hist_totals.to(torch.int64)
         pdf, cdf, magic, shift = normalize_probs_batched(hist, totals, prob_bits)

@@ -20,8 +20,9 @@ A port of the JAX package's ``models/float_codec.py``:
   archive in place, below each member's count (0 for a failed member):
   no staging merge and no select, where the JAX package's two-pass branch
   stages the sections with a merge and selects after the join;
-* verify_checksum folds the XOR of the decoded bytes in plain torch
-  (the JAX package's ``float_codec.py:453-457``).
+* verify_checksum XORs each member's decoded bytes (the JAX package's
+  ``float_codec.py:453-457``) with one K8 launch in its checksum-only
+  form, reading the live bytes of the decoded rows in place.
 
 Archive layout per member (u32 words): float header (8; word 4 holds the
 first ANS archive's byte size for fp64), raw section 1, raw section 2
@@ -66,6 +67,7 @@ from ..ops.float_split import (
     split_wide_hist,
     split_wide_hist_plain,
 )
+from ..ops.histogram import checksum_rows
 from ..ops.merge import runs_merge, runs_merge_plain
 from ..utils.profiling import span, spanned
 from .ans import (
@@ -357,21 +359,26 @@ def float_decompress_core(
                 words32 = join(comp32, planes, abs_base + o_s1, abs_base + o_s2,
                                count, ft)
         return (words32, success, n, csum_arch,
-                _decoded_checksum(words32, n, ft, verify_checksum))
+                _decoded_checksum(words32, n, ft, verify_checksum, plain))
 
     # the fused decodes' words are zero past n; one select zeroes failed
     # members
     words32 = torch.where(success[:, None], words32, 0)
     return (words32, success, n, csum_arch,
-            _decoded_checksum(words32, n, ft, verify_checksum))
+            _decoded_checksum(words32, n, ft, verify_checksum, plain))
 
 
-def _decoded_checksum(words32, n, ft: FloatType, verify: bool):
-    """XOR of the first n floats' bytes of each decoded row, or zeros."""
+def _decoded_checksum(words32, n, ft: FloatType, verify: bool, plain: bool):
+    """XOR of the first n floats' bytes of each decoded row, or zeros: one
+    read of those bytes in place (K8's checksum-only form on the card), or
+    the plain fold where plain."""
     if not verify:
         return torch.zeros_like(n)
     with span("stage:float_codec.verify"):
-        return checksum_packed(to_u32(words32), n * FLOAT_WORD_SIZE[ft])
+        nbytes = n * FLOAT_WORD_SIZE[ft]
+        if plain:
+            return checksum_packed(to_u32(words32), nbytes)
+        return checksum_rows(words32.view(torch.uint8), nbytes)
 
 
 @spanned("model:float_codec.float_compress_padded")

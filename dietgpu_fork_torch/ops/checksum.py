@@ -2,11 +2,13 @@
 
 A port of the JAX package's ``ops/checksum.py``: the reference checksum is
 the XOR of all input bytes (GpuChecksum.cuh:26-93). The JAX package
-computes it outside any Pallas kernel, and so does the port, except where
-a kernel already reads the same bytes (K1, K5 and K8 fold it in the same
-pass). torch has no XOR reduction, so a row is folded in halves with ``^``
-until one column is left; u32 values are int64 carriers (``bitops``), so
-no fold goes through an int32 arithmetic shift.
+computes it outside any Pallas kernel; on the card the port's kernels do
+(K1, K5 and K8 fold it in the pass that counts the bytes, and K8's
+checksum-only form checks decoded bytes, ``histogram.checksum_rows``),
+and these folds are their plain versions' contract. torch has no XOR
+reduction, so a row is folded in halves with ``^`` until one column is
+left; u32 values are int64 carriers (``bitops``), so no fold goes
+through an int32 arithmetic shift.
 """
 
 from __future__ import annotations

@@ -12,6 +12,10 @@ folds the checksum of the bytes it counts in the same read (the
 reference's ``checksumBatch`` + ``ansHistogramBatch`` in one pass), and a
 CPU tensor to ``byte_hist_plain``: a row-offset ``torch.bincount`` over
 the bytes below ``sizes[b]``, and ``checksum_batched``.
+
+``checksum_rows`` is the checksum alone: a CUDA tensor goes to K8's
+checksum-only form, which reads each row's live bytes once, in place,
+whatever the rows' base and stride; a CPU tensor to ``checksum_batched``.
 """
 
 from __future__ import annotations
@@ -53,9 +57,24 @@ def byte_hist(rows: torch.Tensor,
     return K.byte_hist(rows, sizes)
 
 
-def byte_hist_plain(rows: torch.Tensor, sizes: torch.Tensor):
-    """Plain PyTorch version of K8; runs on any device."""
+def checksum_rows(rows: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """rows: uint8[B, S]; sizes: [B] byte counts (clipped to [0, S]).
+    Returns int64[B], the XOR of each row's first sizes[b] bytes."""
     _check_hist_args(rows, sizes)
+    if not use_kernels(rows):
+        return checksum_batched(rows, sizes)
+    if rows.shape[1] > 1 and rows.stride(1) != 1:
+        rows = rows.contiguous()
+    sizes = sizes.to(torch.int64).clamp(0, rows.shape[1])
+    return K.byte_hist(rows, sizes, False)[1]
+
+
+def byte_hist_plain(rows: torch.Tensor, sizes: torch.Tensor, hist: bool = True, /):
+    """Plain PyTorch version of K8; runs on any device. hist False, as in
+    the kernel's wrapper, returns (None, csum int64)."""
+    _check_hist_args(rows, sizes)
+    if not hist:
+        return None, checksum_batched(rows, sizes)
     B, S = rows.shape
     dev = rows.device
     keep = (torch.arange(S, device=dev)[None, :]

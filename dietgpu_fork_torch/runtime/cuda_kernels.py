@@ -175,6 +175,7 @@ def library() -> ctypes.CDLL:
         "dgt_split_wide_hist": [P, L, L, P, I, P, P, P, P, P, P],
         "dgt_join": [P, L, P, L, P, P, L, P, P, L, L, P, L, L, I, I, P, P],
         "dgt_byte_hist": [P, L, L, P, P, P, P],
+        "dgt_byte_checksum": [P, L, L, L, P, P, P],
         "dgt_rans_encode_blocks": [P, P, P, P, L, L, I, P, P, P, P],
         "dgt_bitmap_pack": [P, L, L, L, P, L, I, P, P],
         "dgt_sparse_compact": [P, L, L, L, P, P, L, I, P, L, P],
@@ -538,25 +539,39 @@ def join_wide_at(comp32, planes, s1_off, s2_off, count, float_type):
 
 
 @spanned("kernel:byte_hist")
-def byte_hist(rows: torch.Tensor, sizes: torch.Tensor):
-    """K8 launch; arguments as ``ops.histogram.byte_hist``, with rows
-    16 B aligned and of a 16 B multiple, and sizes int32 in [0, S]."""
+def byte_hist(rows: torch.Tensor, sizes: torch.Tensor, hist: bool = True, /):
+    """K8 launch; arguments as ``ops.histogram.byte_hist``, with sizes in
+    [0, S]. With hist, rows are 16 B aligned and of a 16 B multiple, sizes
+    int32, and it returns (hist, csum int32). hist False, positional only,
+    launches the checksum-only form: rows are read in place at any base
+    and row stride, each row's bytes contiguous, sizes int64, and it
+    returns (None, csum int64) with no histogram made."""
     _cuda_only(rows, sizes)
     B, S = rows.shape
     _batch_ok(B)
-    _aligned(rows, 16, "rows")
-    if S % 16:
-        raise ValueError("rows must hold a multiple of 16 bytes")
     dev = rows.device
-    hist = torch.zeros((B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
-    csum = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if hist:
+        _aligned(rows, 16, "rows")
+        if S % 16:
+            raise ValueError("rows must hold a multiple of 16 bytes")
+        counts = torch.zeros((B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    elif S > 1 and rows.stride(1) != 1:
+        raise ValueError("each row's bytes must be contiguous")
+    csum = torch.zeros((B,), dtype=torch.int32 if hist else torch.int64,
+                       device=dev)
     lib = library()
     with torch.cuda.device(dev):
-        err = lib.dgt_byte_hist(rows.data_ptr(), B, S, sizes.data_ptr(),
-                                hist.data_ptr(), csum.data_ptr(), _stream(rows))
+        if hist:
+            err = lib.dgt_byte_hist(rows.data_ptr(), B, S, sizes.data_ptr(),
+                                    counts.data_ptr(), csum.data_ptr(),
+                                    _stream(rows))
+        else:
+            err = lib.dgt_byte_checksum(rows.data_ptr(), B, rows.stride(0), S,
+                                        sizes.data_ptr(), csum.data_ptr(),
+                                        _stream(rows))
     _check(lib, err, "byte_hist")
     launches["byte_hist"] += 1
-    return hist, csum
+    return (counts if hist else None), csum
 
 
 def _rows_i32(t: torch.Tensor, shape, name: str) -> None:

@@ -126,3 +126,225 @@ def test_histogram_rejects_bad_arguments():
         TH.histogram_packed(x, torch.zeros(2))
     with pytest.raises(TypeError):
         TC.checksum_batched(x.to(torch.int32), torch.zeros(2))
+
+
+# K8's checksum-only form (``checksum_rows``). Row widths in bytes of the
+# rows it reads in place: a 16-bit decode's words32 rows at out_floats 13
+# (4 ceil(13 / 2) = 28, no multiple of 16), fp32's 4E and fp64's 8E words
+# at E = 4 (64 and 128), and a raw ANS output row at capacity 45, a view
+# 48 bytes apart.
+CSUM_WIDTHS = {"16bit": (28, 28), "fp32": (64, 64), "fp64": (128, 128),
+               "raw": (45, 48)}
+CSUM_SIZES = (0, 1, 15, 16, 17, "full")
+
+
+class _K8Route:
+    """Stands in for ``cuda_kernels.byte_hist``: holds the checksum-only
+    call's arguments to its contract, records the call and answers with
+    the plain fold; the histogram form goes to the plain version."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        if len(args) == 2:
+            return TH.byte_hist_plain(*args)
+        rows, sizes, hist = args
+        assert hist is False and rows.dtype == torch.uint8
+        assert sizes.dtype == torch.int64
+        assert int(sizes.min()) >= 0 and int(sizes.max()) <= rows.shape[1]
+        self.calls.append((rows.data_ptr(), rows.stride()))
+        return None, TC.checksum_batched(rows, sizes)
+
+
+@pytest.fixture
+def k8_route(monkeypatch):
+    """Sends ``checksum_rows`` down its kernel route on the CPU."""
+    from dietgpu_fork_torch.runtime import cuda_kernels as K
+
+    route = _K8Route()
+    monkeypatch.setattr(TH, "use_kernels", lambda t: True)
+    monkeypatch.setattr(K, "byte_hist", route)
+    return route
+
+
+def _csum_rows(seed, width):
+    W, stride = CSUM_WIDTHS[width]
+    x = np.random.default_rng(seed).integers(0, 256, (3, stride), dtype=np.uint8)
+    return bytes_from_numpy(x)[:, :W], W
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("size", CSUM_SIZES)
+@pytest.mark.parametrize("width", list(CSUM_WIDTHS))
+def test_checksum_rows_equals_the_folds(request, width, size, route):
+    rows, W = _csum_rows(len(width), width)
+    s = W if size == "full" else size
+    sizes = torch.tensor([s, W + 9, min(s, 3)], dtype=torch.int64)
+    if route == "kernel":
+        k8 = request.getfixturevalue("k8_route")
+    got = TH.checksum_rows(rows, sizes)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, TC.checksum_batched(rows, sizes))
+    if W % 4 == 0:
+        assert torch.equal(got, TC.checksum_packed(
+            to_u32(rows.contiguous().view(torch.int32)), sizes))
+    if route == "kernel":
+        # one launch, on the rows in place: no copy, no padding
+        assert k8.calls == [(rows.data_ptr(), rows.stride())]
+
+
+@pytest.mark.parametrize("plain", [True, False])
+@pytest.mark.parametrize("ft", [1, 2, 3, 4])
+def test_failed_member_checksums_to_zero(ft, plain):
+    from dietgpu_fork_torch.core.constants import FloatType
+    from dietgpu_fork_torch.models import float_codec as FC
+    from tests.conftest import make_float_words
+
+    n = 300
+    rng = np.random.default_rng(ft)
+    ftype = FloatType(ft)
+    words = [make_float_words(rng, ftype, n) for _ in range(2)]
+    ws = words[0].itemsize
+    x = np.zeros((2, -(-n * ws // 16) * 4), np.uint32)
+    for i, w in enumerate(words):
+        x[i].view(np.uint8)[: n * ws] = w.view(np.uint8)
+    n_t = torch.full((2,), n, dtype=torch.int32)
+    comp, _ = FC.float_compress_core(rows_from_numpy(x), n_t, ftype,
+                                     use_checksum=True, plain=plain)
+    caps = torch.tensor([n, n - 1])  # member 1 does not fit: it fails
+    words32, ok, _, ca, cg = FC.float_decompress_core(
+        comp, torch.zeros(2, dtype=torch.int64), n, ftype, capacities=caps,
+        verify_checksum=True, plain=plain)
+    assert ok.tolist() == [True, False]
+    assert not bool(words32[1].any())
+    assert int(cg[0]) == int(ca[0]) and int(cg[1]) == 0
+
+
+def _raise_k8(*args):
+    raise AssertionError("a plain path reached the kernel wrappers")
+
+
+def _verified_decode(kind, plain):
+    """One verified decode (or, for ``ans_hist``, an encode given its
+    histogram with the checksum on) of a small batch on the CPU."""
+    from dietgpu_fork_torch.core.constants import FloatType
+    from dietgpu_fork_torch.models import ans as A
+    from dietgpu_fork_torch.models import float_codec as FC
+    from dietgpu_fork_torch.models import sparse as SP
+
+    rng = np.random.default_rng(5)
+    if kind == "ans_hist":
+        x = bytes_from_numpy(make_exponential_bytes(rng, 2 * 3000, 8.0).reshape(2, -1))
+        sizes = torch.tensor([3000, 1001], dtype=torch.int32)
+        hist = TH.byte_hist_plain(x, sizes)[0]
+        return A.ans_encode_padded(x, sizes, 10, True, hist=hist, plain=plain)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 1000)).astype(np.float32))
+    x[:, ::3] = 0
+    d = x.view(torch.int32)
+    n = torch.tensor([1000, 777], dtype=torch.int32)
+    if kind == "float":
+        comp, _ = FC.float_compress_core(d, n, FloatType.FLOAT32, 10, True,
+                                         plain=True)
+        return FC.float_decompress_core(
+            comp, torch.zeros(2, dtype=torch.int64), 1000, FloatType.FLOAT32,
+            10, verify_checksum=True, plain=plain)
+    comp, _ = SP.sparse_float_compress_padded(d, n, FloatType.FLOAT32, 10, True,
+                                              plain=True)
+    return SP.sparse_float_decompress_core(
+        comp.view(torch.int32), 1000, FloatType.FLOAT32, 10,
+        verify_checksum=True, plain=plain)
+
+
+@pytest.mark.parametrize("kind", ["float", "sparse", "ans_hist"])
+def test_plain_checksums_never_reach_the_kernels(monkeypatch, kind):
+    """plain=True keeps the torch fold even where ``checksum_rows`` would
+    take the kernel; plain=False takes it, one call a batch."""
+    from dietgpu_fork_torch.runtime import cuda_kernels as K
+
+    want = _verified_decode(kind, True)
+    monkeypatch.setattr(TH, "use_kernels", lambda t: True)
+    monkeypatch.setattr(K, "byte_hist", _raise_k8)
+    got = _verified_decode(kind, True)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+    with pytest.raises(AssertionError, match="reached the kernel"):
+        _verified_decode(kind, False)
+    route = _K8Route()
+    monkeypatch.setattr(K, "byte_hist", route)
+    got = _verified_decode(kind, False)
+    assert len(route.calls) == 1
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+@pytest.mark.parametrize("float_type", [None, "float16", "float32", "float64"])
+@pytest.mark.parametrize("checksum", [True, False])
+def test_a_verified_api_decompress_takes_one_k8_call(k8_route, float_type,
+                                                     checksum):
+    """decompress_data(..., checksum=True) checks a batch's decoded bytes
+    with one call of K8's checksum-only form, dense, sparse or raw; with
+    the checksum off it makes none."""
+    from dietgpu_fork_torch.api import codec as C
+
+    rng = np.random.default_rng(9)
+    if float_type is None:
+        ts = [torch.from_numpy(make_exponential_bytes(rng, n, 8.0)) for n in (999, 45)]
+        calls = [(False, {})]
+    else:
+        ts = [torch.from_numpy(rng.normal(0, 1, n).astype(float_type))
+              for n in (999, 45)]
+        ts[0][::2] = 0
+        calls = [(True, {}), (True, {"sparse": True})]
+    sizes = [t.numel() for t in ts]
+    for as_float, kw in calls:
+        comp, _, _ = C.compress_data(as_float, ts, checksum=checksum, **kw)
+        before = len(k8_route.calls)
+        outs, _, ok, status, _ = C.decompress_data(
+            as_float, comp, sizes, dtype=ts[0].dtype, checksum=checksum, **kw)
+        assert bool(ok.all()) and all(torch.equal(o, t) for o, t in zip(outs, ts))
+        assert len(k8_route.calls) - before == int(checksum)
+        assert status.ok
+
+
+def test_k8_checksum_form_is_positional_and_refuses_cpu_tensors():
+    """The third argument of K8's wrapper, which drops the histogram, is
+    positional only (a recorder that passes ``*args`` sees it), as in the
+    plain version; the wrapper takes CUDA tensors only and builds nothing
+    for a CPU call."""
+    from dietgpu_fork_torch.runtime import cuda_kernels as K
+
+    rows = torch.zeros((2, 45), dtype=torch.uint8)
+    sizes = torch.tensor([45, 3], dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        K.byte_hist(rows, sizes, False)
+    with pytest.raises(TypeError):
+        K.byte_hist(rows, sizes, hist=False)
+    with pytest.raises(TypeError):
+        TH.byte_hist_plain(rows, sizes, hist=False)
+    assert K._lib is None
+    h, c = TH.byte_hist_plain(rows, sizes, False)
+    assert h is None and c.dtype == torch.int64
+    assert torch.equal(c, TH.byte_hist_plain(rows, sizes)[1].to(torch.int64))
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32", "float64"])
+def test_a_flipped_raw_byte_is_a_checksum_mismatch(dtype, sparse):
+    """One flipped byte of an archive's raw section decodes (the ANS
+    streams are intact) to bytes whose checksum differs from the stored
+    one: ``decompress_data(..., checksum=True)`` reports a mismatch, not a
+    failed decode."""
+    from dietgpu_fork_torch.api import codec as C
+    from dietgpu_fork_torch.core.constants import sparse_bitmap_bytes
+
+    n = 2000
+    x = np.random.default_rng(7).normal(0, 1, n)
+    x[::2] = 0
+    t = (torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+         if dtype == "bfloat16" else torch.from_numpy(x.astype(dtype)))
+    comp, _, _ = C.compress_data(True, [t], checksum=True, sparse=sparse)
+    dense = 16 + sparse_bitmap_bytes(n) if sparse else 0
+    comp[0, dense + 40] ^= 0x5A  # a raw-section byte (header: 32 bytes)
+    with pytest.raises(RuntimeError, match="checksum mismatch") as e:
+        C.decompress_data(True, comp, [n], dtype=t.dtype, checksum=True,
+                          sparse=sparse)
+    assert "expected checksum" in str(e.value)
