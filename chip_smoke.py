@@ -34,12 +34,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      of them exact zeros over N(0,1), prob_bits 9, checksum on, default
      layout, in bf16, fp32 and fp64;
    - the decode formulations, each on the archive of its core path's input
-     made at set-up, so a run is the decode alone: FP32-fused
-     (``float_decompress_core(..., fused=True)``: K12) and BF16-twopass
-     (``fused=False``: K6 then K13 reading the raw section from the
-     archive in place, no K3), native and classic; each must equal the
-     default decode of the same archive, and the default paths above must
-     launch neither K12 nor K13;
+     made at set-up, so a run is the decode alone: FP32-twopass and
+     BF16-twopass (``float_decompress_core(..., fused=False)``: K6 then K7
+     or K13 reading the raw sections from the archive in place, no K3),
+     native and classic; each must equal the default (fused: K12, K4)
+     decode of the same archive, and the fp32 and 16-bit default paths
+     above must launch neither K7's archive mode nor K13;
    - O, the ops with no TPU path (``OpsPhase``): ``split_packed`` (K1 and
      K5 without histogram) of each type's 16Mi input and the join back
      (K13, K7 in tensor mode), ``chunked_lookup`` and ``rowwise_lookup``
@@ -93,8 +93,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    and a row width no multiple of 16), K8's checksum-only form against the
    torch folds (``phase_checksum_edges``: the decoded rows' widths and
    strides, 16-bit, fp32, fp64 and raw, rows 4-12 B past a 16 B boundary,
-   sizes 0, 1, 15, 16, 17, the row and past it); checks that a core or 16-bit
-   two-pass round trip makes at most ``K3_MAX_LAUNCHES`` K3 launches
+   sizes 0, 1, 15, 16, 17, the row and past it); checks that a core or two-pass
+   round trip makes at most ``K3_MAX_LAUNCHES`` K3 launches
    (phase 3: the compress merge);
    round-trips a ragged bf16 batch of 128 members and ragged fp32 and
    fp64 batches of 64 members, each of up to 128Ki floats; then D, the
@@ -274,10 +274,10 @@ P_A, P_B = "A:api-bf16", "B:api-raw"
 P_CF, P_CR, P_C32 = "C:api-bf16-classic", "C:api-raw-classic", "C:api-fp32-classic"
 P_S16, P_S32, P_S64 = "S:api-sparse-bf16", "S:api-sparse-fp32", "S:api-sparse-fp64"
 P_S = (P_S16, P_S32, P_S64)
-# the decode formulations: fused fp32 (K12) and two-pass bf16 (K6 + K13 in
-# archive mode) on the fp32 and bf16 core archives, native and classic;
-# phase O, the ops with no TPU path
-P_F32F, P_F32FC = "FP32-fused", "FP32-fused-classic"
+# the decode formulations that are not the default: two-pass fp32 (K6 + K7)
+# and bf16 (K6 + K13), both in archive mode, on the fp32 and bf16 core
+# archives, native and classic; phase O, the ops with no TPU path
+P_F32T, P_F32TC = "FP32-twopass", "FP32-twopass-classic"
 P_B16T, P_B16TC = "BF16-twopass", "BF16-twopass-classic"
 P_O = "O:ops"
 # phase P, the distributed layer on NCCL in a world of one (classic
@@ -289,12 +289,13 @@ P_GRAW = "P:all-gather-raw"
 P_RS32, P_RS16 = "P:reduce-scatter-fp32", "P:reduce-scatter-bf16"
 P_AR32, P_AR16 = "P:all-reduce-fp32", "P:all-reduce-bf16"
 P_PP16 = "P:ppermute-bf16"
-# the P paths of each kernel: K1 and K4 classic on 16-bit data; K5, K6
-# classic and K7 on fp32 and fp64 (the raw gather too: its archive is made,
-# not sent, and the raw words it receives go through the decode, which
-# fails them); K8 on the shared table
+# the P paths of each kernel: K1 and K4 classic on 16-bit data; K5 on fp32
+# and fp64, K12 classic on fp32, K6 classic and K7 on fp64 (the raw gather
+# is fp32: its archive is made, not sent, and the raw words it receives go
+# through the decode, which fails them); K8 on the shared table
 P_16 = (P_SH16, P_G16, P_RS16, P_AR16, P_PP16)
-P_WIDE_DEC = (P_SH32, P_G32, P_G64, P_GRAW, P_RS32, P_AR32)
+P_DEC32 = (P_SH32, P_G32, P_GRAW, P_RS32, P_AR32)
+P_WIDE_DEC = P_DEC32 + (P_G64,)
 P_ALL = P_16 + P_WIDE_DEC + (P_TAB,)
 # phase P's sizes: the sharded codec's members, the shared table's byte
 # rows (the reference ANSTest.cu's exponential law, lambda P_LAMBDA)
@@ -338,7 +339,8 @@ _AT_BLOCKS = functools.partial(decode_at_plain, rows=False)
 # set-up, so their counted decode must launch none); every decode reads
 # its raw sections from the archive in place (K4, K12, and K7's and K13's
 # archive modes)
-K3_MAX_LAUNCHES = {P_BF16: 1, P_FP32: 1, P_FP64: 1, P_B16T: 1, P_B16TC: 1}
+K3_MAX_LAUNCHES = {P_BF16: 1, P_FP32: 1, P_FP64: 1, P_B16T: 1, P_B16TC: 1,
+                   P_F32T: 1, P_F32TC: 1}
 # K5 and K7 edges (``wide_edge_inputs``): counts around the tiles of K5
 # (8192 fp32 / 4096 fp64 floats) and K7 (4096 / 2048) and inside a plane
 # word, one past the row's floats; rows of WIDE_EDGE_CAP floats, so plane
@@ -422,12 +424,12 @@ KERNELS = [
     ("decode_rows", "rans_decode_rows", _AT_ROWS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",),
-     (P_FP32, P_FP64, P_B, P_S32, P_S64, P_B16T)),
+     (P_FP64, P_B, P_S64, P_B16T, P_F32T)),
     ("join_wide_at", "join_wide_at", join_wide_at_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
       "ops/pallas/float_split_fused.py:412"),
-     (P_FP32, P_FP64, P_C32, P_S32, P_S64) + P_WIDE_DEC),
+     (P_FP64, P_S64, P_F32T, P_F32TC, P_G64)),
     ("join_wide", "join_wide", join_wide_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:395",
@@ -445,7 +447,7 @@ KERNELS = [
     ("decode_blocks", "rans_decode_blocks", _AT_BLOCKS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",),
-     (P_CR, P_C32, P_B16TC) + P_WIDE_DEC + (P_TAB,)),
+     (P_CR, P_B16TC, P_F32TC, P_G64, P_TAB)),
     ("decode_join16_blocks", "rans_decode_join16_blocks",
      _AT_BLOCKS, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",), (P_CF,) + P_16),
@@ -463,11 +465,11 @@ KERNELS = [
     ("decode_join32", "rans_decode_join32", _AT_ROWS,
      "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",
-      "ops/pallas/rans_decode_fused2.py:267"), (P_F32F,)),
+      "ops/pallas/rans_decode_fused2.py:267"), (P_FP32, P_S32)),
     ("decode_join32_blocks", "rans_decode_join32_blocks",
      _AT_BLOCKS, "dietgpu_fork_torch/csrc/rans_decode_rows.cu",
      ("ops/pallas/rans_decode_fused2.py:104",
-      "ops/pallas/rans_decode_fused2.py:267"), (P_F32FC,)),
+      "ops/pallas/rans_decode_fused2.py:267"), (P_C32,) + P_DEC32),
     ("join16_at", "join16_at", join16_at_plain,
      "dietgpu_fork_torch/csrc/join_wide.cu",
      ("ops/pallas/float_split_fused.py:377",), (P_B16T, P_B16TC)),
@@ -2306,8 +2308,8 @@ def run() -> int:
     ] + [ApiSparsePath(name, ft, dev) for name, ft in zip(P_S, (BF16, FP32, FP64))]
     paths += [DecodePath(name, ft, native, fused, dev)
               for name, ft, native, fused in (
-                  (P_F32F, FP32, True, True), (P_B16T, BF16, True, False),
-                  (P_F32FC, FP32, False, True), (P_B16TC, BF16, False, False))]
+                  (P_F32T, FP32, True, False), (P_B16T, BF16, True, False),
+                  (P_F32TC, FP32, False, False), (P_B16TC, BF16, False, False))]
     ops = OpsPhase(dev)
     par = ParallelPhase()
     if "--profile" in sys.argv[1:]:

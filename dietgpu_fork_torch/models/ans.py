@@ -407,12 +407,27 @@ def _ans_parse(
     )
 
 
+def _expect_sizes(p: ParsedANS, n: torch.Tensor) -> ParsedANS:
+    """p with each member whose decoded size is not n (int64[B]; -1 fails
+    the member) failed and its streams and blocks emptied, as the parse
+    leaves a member it fails: the decode writes zeros for it."""
+    ok = p.success & (p.n == n)
+    dead = ~ok[:, None]
+    return p._replace(
+        seg_len=torch.where(dead, 0, p.seg_len), comp_w=torch.where(dead, 0, p.comp_w),
+        uncomp_w=torch.where(dead, 0, p.uncomp_w), success=ok)
+
+
 def _ans_decode(comp32, base32, out_capacity, capacities, prob_bits, native,
-                plain, raw_off=None, sec2_off=None, bf16=False):
+                plain, raw_off=None, sec2_off=None, bf16=False, expect_n=None):
     """Parse, then one in-place decode of every member; the epilogue as
-    ``ops.rans_decode.decode_at``'s. Returns (out, ParsedANS)."""
+    ``ops.rans_decode.decode_at``'s. expect_n: fail the members whose
+    decoded size is not this before the decode (``_expect_sizes``).
+    Returns (out, ParsedANS)."""
     with span("stage:ans.parse"):
         p = _ans_parse(comp32, base32, out_capacity, capacities, prob_bits, native)
+        if expect_n is not None:
+            p = _expect_sizes(p, expect_n)
         lut = from_u32(build_decode_table_batched(p.pdf, prob_bits))
     with span("stage:ans.decode"):
         decode = decode_at_plain if plain else decode_at
@@ -478,6 +493,7 @@ def ans_decode_join32_core(
     base32: torch.Tensor,
     sec1_off: torch.Tensor,
     sec2_off: torch.Tensor,
+    expect_n: torch.Tensor,
     out_floats: int,
     prob_bits: int,
     capacities: Optional[torch.Tensor] = None,
@@ -488,17 +504,23 @@ def ans_decode_join32_core(
     and join them with the raw sections that start at words sec1_off
     (low-u16 pairs, 2048 words a block) and sec2_off (third bytes, 1024
     words a block), int64[B] each, of ``comp32.reshape(-1)``, into fp32
-    words (the JAX package's ``models/ans.py:608-640``).
+    words (the JAX package's ``models/ans.py:608-640``). A member whose
+    decoded size is not expect_n (int64[B]; -1 fails it) fails before the
+    decode, which writes zeros for it.
 
-    Returns (words32 int32[B, out_floats], success bool[B], n int64[B],
-    csum int64[B]). words32 is not masked by success, as in
-    ``ans_decode_join16_core``."""
+    Returns (words32 int32[B, 4E] for E = max(ceil(out_floats / 4), 1), zero
+    past each member's size and for failed members; success bool[B];
+    n int64[B]; csum int64[B])."""
     comp32 = comp32.contiguous()
     out, p = _ans_decode(comp32, base32, out_floats, capacities, prob_bits,
-                         native, plain, raw_off=sec1_off, sec2_off=sec2_off)
+                         native, plain, raw_off=sec1_off, sec2_off=sec2_off,
+                         expect_n=expect_n)
     B, NB = p.comp_w.shape
-    return (out.reshape(B, NB * BLOCK_SIZE)[:, :out_floats], p.success, p.n,
-            p.csum)
+    # the blocks' words are zero past each block's count, and NB blocks
+    # hold at least 4E words
+    OW = 4 * max(_ceil_div(out_floats, 4), 1)
+    return (out.reshape(B, NB * BLOCK_SIZE)[:, :OW].contiguous(), p.success,
+            p.n, p.csum)
 
 
 def ans_decode_padded(

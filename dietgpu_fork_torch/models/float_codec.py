@@ -8,13 +8,14 @@ A port of the JAX package's ``models/float_codec.py``:
   launch for both fp64 planes) -> one K3 merge placing the float header,
   the raw sections and the ANS archives' runs into each member's archive
   row;
-* decompress, fused (the default for 16-bit types): float header parse ->
-  ANS parse and validation -> K4 (16-bit) or K12 (fp32, ``fused=True``)
-  decodes and joins into float words, reading the streams, the states and
-  the raw section(s) from the archive in place (the JAX package's fused
-  branches): no K3 merge;
-* decompress, two-pass (the default for fp32 and fp64, ``fused=False``
-  for 16-bit types): float header parse -> per plane, ANS parse,
+* decompress, fused (the default for 16-bit types and fp32): float header
+  parse -> ANS parse and validation -> K4 (16-bit) or K12 (fp32) decodes
+  and joins into float words, reading the streams, the states and the raw
+  section(s) from the archive in place (the JAX package's fused
+  branches): no K3 merge; fp32 members that fail are failed before K12,
+  which zeroes them, so no select follows;
+* decompress, two-pass (the default for fp64, ``fused=False`` for the
+  others): float header parse -> per plane, ANS parse,
   validation and a K6 decode to bytes (in place) -> K7 (fp32, fp64) or
   K13 (16-bit) joins the planes with the raw sections read from the
   archive in place, below each member's count (0 for a failed member):
@@ -271,13 +272,14 @@ def float_decompress_core(
     formulation: True decodes and joins in one kernel (K4 for 16-bit types,
     K12 for fp32; fp64 has none and raises ValueError), False decodes the
     exponent planes to bytes and joins in a second pass (K6, then K13 or
-    K7), None takes the JAX package's choice on its kernel path: fused for
-    16-bit types, two-pass for fp32 and fp64. Every choice returns the same
+    K7), None the fused decode wherever the type has one, two-pass for
+    fp64 (on the H100 a fused fp32 decompress of 123,456,789 floats takes
+    less device time than the two passes). Every choice returns the same
     words.
     """
     ft = _check_type(float_type)
     if fused is None:
-        fused = ft in _FLOAT16_TYPES
+        fused = ft != FloatType.FLOAT64
     if fused and ft == FloatType.FLOAT64:
         raise ValueError("fp64 has no fused decode: pass fused=False or None")
     with span("stage:float_codec.header"):
@@ -315,22 +317,24 @@ def float_decompress_core(
         abs_base = b_ar * CW + base
         E = max(-(-out_floats // 4), 1)
 
-    if fused:
-        # the decode reads the raw sections in place: per 4096-float block
-        # 1024 raw words (16-bit), or 2048 sec1 and 1024 sec2 words (fp32)
-        if ft in _FLOAT16_TYPES:
-            words32, ok, psize, _ = ans_decode_join16_core(
-                comp32, ans_base, abs_base + o_s1, out_floats, prob_bits,
-                ft == FloatType.BFLOAT16, capacities, native, plain,
-            )
-        else:
-            words32, ok, psize, _ = ans_decode_join32_core(
-                comp32, ans_base, abs_base + o_s1, abs_base + o_s2, out_floats,
-                prob_bits, capacities, native, plain,
-            )
-            if 4 * E > out_floats:  # the two-pass width, 4E words
-                words32 = F.pad(words32, (0, 4 * E - out_floats))
+    # the fused decodes read the raw sections in place: per 4096-float
+    # block 1024 raw words (16-bit), or 2048 sec1 and 1024 sec2 words (fp32)
+    if fused and ft == FloatType.FLOAT32:
+        # the members that fail here fail in the decode too, which zeroes
+        # them and writes 4E words: no widening, no select
+        words32, success, _, _ = ans_decode_join32_core(
+            comp32, ans_base, abs_base + o_s1, abs_base + o_s2,
+            torch.where(success, n, -1), out_floats, prob_bits, capacities,
+            native, plain,
+        )
+    elif fused:
+        words32, ok, psize, _ = ans_decode_join16_core(
+            comp32, ans_base, abs_base + o_s1, out_floats, prob_bits,
+            ft == FloatType.BFLOAT16, capacities, native, plain,
+        )
         success = success & ok & (psize == n)
+        # the words are zero past n; one select zeroes failed members
+        words32 = torch.where(success[:, None], words32, 0)
     else:
         # one decode per exponent plane; the second archive starts
         # first_seg bytes after the first
@@ -358,12 +362,6 @@ def float_decompress_core(
                 join = join_wide_at_plain if plain else join_wide_at
                 words32 = join(comp32, planes, abs_base + o_s1, abs_base + o_s2,
                                count, ft)
-        return (words32, success, n, csum_arch,
-                _decoded_checksum(words32, n, ft, verify_checksum, plain))
-
-    # the fused decodes' words are zero past n; one select zeroes failed
-    # members
-    words32 = torch.where(success[:, None], words32, 0)
     return (words32, success, n, csum_arch,
             _decoded_checksum(words32, n, ft, verify_checksum, plain))
 

@@ -1,10 +1,10 @@
 """The decode formulations of the port's float codec on the CPU (plain
-versions), exact: the fused fp32 decode (``fused=True``, K12's route) and
-the two-pass 16-bit decode (``fused=False``, K6 then K13) equal the default
-decode, the JAX package's portable decode and the NumPy oracle in both
-layouts; fp64 has no fused decode; a corrupt archive fails alike on every
-route; and the plain versions of K12 and K13 equal the JAX package's
-``join_packed``."""
+versions), exact: the two-pass decodes (``fused=False``: K6 then K13 for
+16-bit types, K6 then K7 for fp32), which are not the default, equal the
+default fused decode (K4, K12), the JAX package's portable decode and the
+NumPy oracle in both layouts; fp64 has no fused decode; a corrupt archive
+fails alike on every route; and the plain versions of K12 and K13 equal
+the JAX package's ``join_packed``."""
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +30,8 @@ from tests.test_torch_float_codec import assert_round_trip
 from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = [0, 1, 4095, 4096, 4097, 3 * 4096 + 5, 9 * 4096 + 100]
-# the formulation that is not the default: fused fp32, two-pass 16-bit
-OTHER = {JFT.FLOAT16: False, JFT.BFLOAT16: False, JFT.FLOAT32: True}
+# the formulation that is not the default: two-pass, for 16-bit and fp32
+OTHER = {JFT.FLOAT16: False, JFT.BFLOAT16: False, JFT.FLOAT32: False}
 
 jax_dec = jax.jit(
     JF.float_decompress_core,
