@@ -4,7 +4,7 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. prints the card (nvidia-smi name and power limit), the torch and CUDA
-   versions, and builds the fifteen CUDA kernels (K1-K15, twelve sources)
+   versions, and builds the sixteen CUDA kernels (K1-K16, thirteen sources)
    from ``dietgpu_fork_torch/csrc`` (nvcc, sm_90a, one process per
    source), printing the build time, ptxas's register, shared-memory and
    spill report, and K2's CTAs an SM;
@@ -93,7 +93,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    and a row width no multiple of 16), K8's checksum-only form against the
    torch folds (``phase_checksum_edges``: the decoded rows' widths and
    strides, 16-bit, fp32, fp64 and raw, rows 4-12 B past a 16 B boundary,
-   sizes 0, 1, 15, 16, 17, the row and past it); checks that a core or two-pass
+   sizes 0, 1, 15, 16, 17, the row and past it), and K16, the ANS parse,
+   to its plain version on every field and the decode table
+   (``phase_parse_edges``: both layouts, prob_bits 9-11, a ragged batch
+   at word offsets with one member broken by each failure rule of the
+   parse, expect_n, pdfs that sum short or to zero); checks that a core or two-pass
    round trip makes at most ``K3_MAX_LAUNCHES`` K3 launches
    (phase 3: the compress merge);
    round-trips a ragged bf16 batch of 128 members and ragged fp32 and
@@ -110,7 +114,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    decode formulation in turns with the default one on the same archive;
    K8's checksum-only form at the sparse fp64 verify's shape (5 rows of
    30M words, about 7.5M live fp64 each) beside its bound and the torch
-   fold it replaces (``time_checksum_form``); each function of phase P on
+   fold it replaces (``time_checksum_form``); K16 at each benchmark cell's
+   shapes (``time_parse``: held to the plain version on the calls one
+   decompress_data makes, its launches counted, its device time a call
+   against PARSE_MAX_MS and its bound); each function of phase P on
    its own, with its raw and wire MiB.
 
 ``python3 chip_smoke.py --profile`` instead profiles each main path's
@@ -155,7 +162,13 @@ from dietgpu_fork_torch.core.interop import (
     rows_from_numpy,
     rows_to_numpy,
 )
-from dietgpu_fork_torch.models.ans import ans_decode_padded, ans_encode_padded
+from dietgpu_fork_torch.models.ans import (
+    ans_decode_padded,
+    ans_encode_core,
+    ans_encode_padded,
+    ans_parse,
+    ans_parse_plain,
+)
 from dietgpu_fork_torch.models.float_codec import (
     float_compress_core,
     float_compress_padded,
@@ -297,6 +310,9 @@ P_16 = (P_SH16, P_G16, P_RS16, P_AR16, P_PP16)
 P_DEC32 = (P_SH32, P_G32, P_GRAW, P_RS32, P_AR32)
 P_WIDE_DEC = P_DEC32 + (P_G64,)
 P_ALL = P_16 + P_WIDE_DEC + (P_TAB,)
+# every path that decodes an ANS archive: all but phase O
+P_DECODE = ((P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S
+            + (P_F32T, P_F32TC, P_B16T, P_B16TC) + P_ALL)
 # phase P's sizes: the sharded codec's members, the shared table's byte
 # rows (the reference ANSTest.cu's exponential law, lambda P_LAMBDA)
 P_MEMBERS, P_MEMBER_N, P_TABLE_BYTES, P_LAMBDA = 8, 1 << 21, 1 << 22, 8.0
@@ -396,6 +412,38 @@ CSUM_EDGE_ROWS = (("16bit-13", 28, 28, 0), ("16bit-200003", 400008, 400008, 0),
                   ("raw-200003", 200003, 200006, 0), ("off4", 131075, 131079, 4),
                   ("off8", 65536, 65544, 8), ("off12", 3 * 65536 + 7, 3 * 65536 + 9, 12))
 CSUM_EDGE_SIZES = (0, 1, 15, 16, 17, "full", "past")
+# K16 edges (``parse_edge_rows``): a ragged batch in rows of PARSE_EDGE_NB
+# blocks, member 0 of 6 blocks (its second row 2 live blocks), member 3
+# empty, each archive at word PARSE_EDGE_BASES[b] of its row, made by the
+# plain encoder in either layout at prob_bits 9-11; each rule breaks member
+# 0 by one failure rule of the parse ("none", "expect_n_ok" and
+# "caps_past_out" break nothing; "pdf_short" and "pdf_zero" leave a pdf
+# that sums below 2^prob_bits, which the parse does not check), and
+# "row_sum" exists in the row layout only.
+# tests/test_torch_ans_parse.py holds the plain version to a scalar model
+# of the contract on the same inputs.
+PARSE_EDGE_NB = 8
+PARSE_EDGE_SIZES = (5 * 4096 + 77, 9000, 1, 0)
+PARSE_EDGE_BASES = (0, 1, 3, 2)
+PARSE_EDGE_RULES = ("none", "magic", "prob_bits", "nb_vs_n", "nb_huge",
+                    "n_negative", "total_negative", "past_row", "capacity",
+                    "count_worst", "fill", "start_negative", "extent",
+                    "row_sum", "expect_n", "expect_n_ok", "caps_past_out",
+                    "pdf_short", "pdf_zero")
+PARSE_EDGE_PASS = ("none", "expect_n_ok", "caps_past_out", "pdf_short", "pdf_zero")
+PARSE_EDGE_CASES = tuple((r, native) for r in PARSE_EDGE_RULES
+                         for native in (True, False) if native or r != "row_sum")
+PARSE_EDGE_PROB_BITS = (9, 10, 11)
+# K16 at the benchmark cells' shapes: (cell, float type, members, floats a
+# member, sparse at 50% zeros, prob_bits, checksum)
+PARSE_CELLS = (
+    ("float_bf16.single123m", BF16, 1, 123_456_789, False, 10, False),
+    ("float_fp32.single123m", FP32, 1, 123_456_789, False, 10, True),
+    ("sparse_fp64.b5x15m", FP64, 5, 15_000_000, True, 9, True),
+    ("float_bf16.batch128", BF16, 128, 1 << 19, False, 10, False),
+    ("sparse_fp64.b3x1m", FP64, 3, 1_000_000, True, 9, True),
+)
+PARSE_MAX_MS = 0.03  # K16's device time a call at every cell's shape
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -493,6 +541,12 @@ KERNELS = [
      "dietgpu_fork_torch/csrc/word_ranks.cu",
      ("ops/pallas/sparse_stream.py:280", "ops/pallas/sparse_stream.py:430"),
      P_S),
+    # K16: the header parse, its checks and the decode table, the torch glue
+    # the JAX package leaves to XLA before its decode kernels, not a Pallas
+    # kernel
+    ("ans_parse", "ans_parse", ans_parse_plain,
+     "dietgpu_fork_torch/csrc/ans_parse.cu",
+     ("models/ans.py:331", "ops/table.py:218"), P_DECODE),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 WARP = 32  # rANS states a block
@@ -555,6 +609,14 @@ def _join16_at_need(a) -> int:
     return 2 * int(count.clamp(0, 4 * plane.shape[1]).sum())
 
 
+def _parse_need(a) -> int:
+    """The archive bytes K16 (ans_parse's arguments) needs of the whole
+    archive tensor it is handed: each member's header and pdf (136 words)
+    and 8 B of blockWords a live block."""
+    live = int((ans_parse_plain(*a).uncomp_w > 0).sum())
+    return 4 * 136 * a[0].shape[0] + 8 * live
+
+
 # the bytes of the inputs whose use depends on the data, as (argument
 # index or indices, the bytes that the call's data needs of them). The
 # splits (K1, K5) are not here: their exponent planes are capacity-sized
@@ -577,6 +639,7 @@ _DATA_INPUT = {
     "decode_join32_blocks": (0, _decode_need),
     "rowwise_lookup": (0, lambda a: 4 * _distinct(*a)),
     "word_ranks": (0, lambda a: 4 * _live_words(*a)),
+    "ans_parse": (0, _parse_need),
 }
 
 
@@ -2051,6 +2114,201 @@ def time_checksum_form(dev, card: str) -> None:
     del words32, rows, want
 
 
+@functools.lru_cache(maxsize=None)
+def parse_edge_archives(native: bool, prob_bits: int) -> np.ndarray:
+    """K16's edge batch unbroken: the archives of PARSE_EDGE_SIZES
+    exponential bytes, made by the plain encoder on the CPU, each at word
+    PARSE_EDGE_BASES[b] of its row (uint32[B, CW])."""
+    cap = PARSE_EDGE_NB * 4096
+    x = np.zeros((len(PARSE_EDGE_SIZES), cap), np.uint8)
+    for b, n in enumerate(PARSE_EDGE_SIZES):
+        x[b, :n] = exponential_bytes(1000 * prob_bits + 10 * native + b, n, 3.0)
+    out, _ = ans_encode_core(rows_from_numpy(x.view(np.uint32)),
+                             torch.tensor(PARSE_EDGE_SIZES, dtype=torch.int32),
+                             prob_bits, s_bytes=cap, native=native, plain=True)
+    arc = rows_to_numpy(out)
+    rows = np.zeros((len(PARSE_EDGE_SIZES), arc.shape[1] + max(PARSE_EDGE_BASES) + 5),
+                    np.uint32)
+    for b, o in enumerate(PARSE_EDGE_BASES):
+        rows[b, o: o + arc.shape[1]] = arc[b]
+    rows.setflags(write=False)  # cached: each case breaks a copy
+    return rows
+
+
+def parse_edge_rows(rule: str, native: bool, prob_bits: int):
+    """One of K16's edge cases: (rows uint32[B, CW], out_capacity,
+    capacities int32[B] or None, expect_n int64[B] or None), the batch with
+    rule applied to member 0 (PARSE_EDGE_RULES)."""
+    rows = parse_edge_archives(native, prob_bits).copy()
+    nb0, base = -(-PARSE_EDGE_SIZES[0] // 4096), PARSE_EDGE_BASES[0]
+    hdr = rows[0, base: base + 8]  # views: writes go into rows
+    pw = rows[0, base + 8: base + 136]
+    bw = rows[0, base + 136 + 32 * nb0:][: 2 * nb0]  # (x, y) a block
+    sizes = list(PARSE_EDGE_SIZES)
+    out_capacity, caps, expect = PARSE_EDGE_NB * 4096, None, None
+    total = int(hdr[3])
+    if rule == "magic":
+        hdr[0] ^= 0x10000
+    elif rule == "prob_bits":
+        hdr[4] = (int(hdr[4]) & ~0xF) | (11 if prob_bits == 9 else 9)
+    elif rule == "nb_vs_n":
+        hdr[1] += 1
+    elif rule == "nb_huge":
+        hdr[1] = 0x7FFFFFFF
+    elif rule == "n_negative":
+        hdr[2] = 0xFFFFF000
+    elif rule == "total_negative":
+        hdr[3] = 0x80000001
+    elif rule == "past_row":
+        hdr[3] = 2 * rows.shape[1]
+    elif rule == "capacity":
+        caps = torch.tensor([sizes[0] - 1] + sizes[1:], dtype=torch.int32)
+    elif rule == "count_worst":  # block 0 past the worst case of 2560 u16
+        bw[0] = (int(bw[0]) & 0xFFFF0000) | 2561
+    elif rule == "fill":  # block 5 holds 77 bytes, not 78
+        bw[10] = int(bw[10]) + (1 << 16)
+    elif rule == "start_negative":  # block 2's start
+        bw[5] = 0xFFFFFFF0
+    elif rule == "extent":  # block 1's extent past total_w
+        bw[3] = total
+    elif rule == "row_sum":
+        # the second row's blocks 4 and 5 pass one by one, not together
+        c4, c5 = int(bw[8]) & 0xFFFF, int(bw[10]) & 0xFFFF
+        check(c4 > 0 and c5 > 0, "K16 edges: row_sum needs two counts")
+        bw[9] = bw[11] = total - max(c4, c5)
+    elif rule == "expect_n":
+        expect = torch.tensor([sizes[0] + 1] + sizes[1:])
+    elif rule == "expect_n_ok":
+        expect = torch.tensor(sizes)
+    elif rule == "caps_past_out":  # member 0's blocks 4 and 5 are not read
+        out_capacity, caps = 4 * 4096, torch.tensor([PARSE_EDGE_NB * 4096] * 4)
+    elif rule == "pdf_short":
+        pw[int(np.flatnonzero(pw & 0xFFFF)[0])] -= 1
+    elif rule == "pdf_zero":
+        pw[:] = 0
+    elif rule != "none":
+        raise ValueError(rule)
+    return rows, out_capacity, caps, expect
+
+
+def parse_edge_inputs(rule: str, native: bool, prob_bits: int, dev):
+    """ans_parse's arguments for parse_edge_rows(rule, native, prob_bits)
+    on dev."""
+    rows, out_capacity, caps, expect = parse_edge_rows(rule, native, prob_bits)
+    return (rows_from_numpy(rows, dev), torch.tensor(PARSE_EDGE_BASES, device=dev),
+            out_capacity, None if caps is None else caps.to(dev), prob_bits,
+            native, None if expect is None else expect.to(dev))
+
+
+def phase_parse_edges(dev):
+    """K16 against its plain version, every field and the table bit for
+    bit, on parse_edge_inputs: each rule in both layouts at prob_bits 9-11,
+    one launch a case; member 0 alone fails, by each failure rule."""
+    for rule, native in PARSE_EDGE_CASES:
+        for pb in PARSE_EDGE_PROB_BITS:
+            args = parse_edge_inputs(rule, native, pb, dev)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            got = ans_parse(*args)
+            torch.cuda.synchronize()
+            what = f"K16 edge {rule} native={native} prob_bits {pb}"
+            check(K.launches["ans_parse"] == 1 and sum(K.launches.values()) == 1,
+                  f"{what}: launches {K.launches}")
+            check(max_abs_err(tuple(got), tuple(ans_parse_plain(*args))) == 0,
+                  f"{what}: K16 differs from the plain parse")
+            check(got.success.tolist() == [rule in PARSE_EDGE_PASS] + [True] * 3,
+                  f"{what}: success {got.success.tolist()}")
+    print(f"K16 edges: {len(PARSE_EDGE_CASES)} cases x prob_bits "
+          f"{PARSE_EDGE_PROB_BITS}, both layouts: equal to the plain parse, "
+          "one launch each")
+
+
+def _device_us(fn, name: str, reps: int) -> float:
+    """Device microseconds a call of the kernels whose name holds name,
+    from a torch.profiler trace of reps calls of fn after 3 warm-ups: the
+    mean of the launches the trace holds (it may drop a few)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    trace = K.BUILD_DIR / f"parse.{os.getpid()}.json"
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    us = [e["dur"] for e in events
+          if e.get("cat") == "kernel" and name in e.get("name", "")]
+    check(2 * len(us) >= reps, f"{len(us)} {name} kernels traced of {reps}")
+    return sum(us) / len(us)
+
+
+def time_parse(dev, card: str) -> None:
+    """K16 at each of PARSE_CELLS' shapes: the members' N(0,1) floats (half
+    of them exact zeros where sparse) through compress_data, then one
+    decompress_data with K16's calls recorded and counted; each call is held
+    to the plain version bit for bit, then timed alone: its device time a
+    call from a profiler trace of 20 calls (checked against PARSE_MAX_MS),
+    by CUDA events, beside its bound and the plain version's time."""
+    for cell, ft, count, n, sparse, pb, csum in PARSE_CELLS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(18)
+        wide = torch.float64 if ft == FP64 else torch.float32
+        x = torch.randn((count, n), generator=g, device=dev, dtype=wide)
+        if sparse:
+            x[torch.rand((count, n), generator=g, device=dev) < 0.5] = 0
+        x = x.to(_TORCH_DTYPE[ft])
+        comp, _, _ = C.compress_data(True, list(x.unbind(0)), checksum=csum,
+                                     prob_bits=pb, sparse=sparse)
+        calls = []
+        orig = K.ans_parse
+
+        def rec(*a):
+            out = orig(*a)
+            calls.append((a, out))
+            return out
+
+        torch.cuda.synchronize()
+        K.reset_launches()
+        K.ans_parse = rec
+        try:
+            outs, _, ok, _, _ = C.decompress_data(
+                True, comp, [n] * count, x.dtype, checksum=csum, prob_bits=pb,
+                sparse=sparse)
+            torch.cuda.synchronize()
+        finally:
+            K.ans_parse = orig
+        launched = K.launches["ans_parse"]
+        check(bool(ok.all()) and all(
+            torch.equal(o.view(torch.uint8), r.view(torch.uint8))
+            for o, r in zip(outs, x.unbind(0))), f"K16 at {cell}: round trip")
+        check(launched == len(calls) == (2 if ft == FP64 else 1),
+              f"K16 at {cell}: {launched} launches, {len(calls)} calls")
+        del outs, x
+        for i, (a, out) in enumerate(calls):
+            check(max_abs_err(out, ans_parse_plain(*a)) == 0,
+                  f"K16 at {cell} call {i}: differs from the plain parse")
+            dev_ms = _device_us(lambda a=a: K.ans_parse(*a), "ans_parse_kernel",
+                                20) / 1e3
+            ev_ms = cuda_ms(lambda a=a: [K.ans_parse(*a) for _ in range(20)],
+                            2, 5) / 20
+            plain_ms = cuda_ms(lambda a=a: ans_parse_plain(*a), 1, 3)
+            b_ms = bound_ms("ans_parse", a, out)
+            B, NB = out[2].shape
+            print(f"K16 at {cell} call {i}: B {B}, NB {NB}, {launched} "
+                  f"launch(es) a decompress; device {dev_ms:.4f} ms a call "
+                  f"(limit {PARSE_MAX_MS}), events {ev_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({100 * b_ms / dev_ms:.1f}% of it), plain "
+                  f"{plain_ms:.3f} ms ({card})")
+            check(dev_ms <= PARSE_MAX_MS,
+                  f"K16 at {cell}: {dev_ms:.4f} ms a call, over {PARSE_MAX_MS}")
+        del calls, comp
+
+
 def phase_hist_edges(dev):
     """K8 against its plain version, bit for bit, on ``hist_edge_inputs``,
     launched once a case; a one-valued row's histogram holds its size in
@@ -2455,6 +2713,7 @@ def run() -> int:
     phase_join16_edges(dev)
     phase_hist_edges(dev)
     phase_checksum_edges(dev)
+    phase_parse_edges(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)
     ragged_batch(FP64, 64, 300, dev)
@@ -2491,6 +2750,7 @@ def run() -> int:
                   f"({mp.raw_bytes / 2**20:.1f} MiB, median; {card})")
 
     time_checksum_form(dev, card)
+    time_parse(dev, card)
 
     # P: each function timed on its own; the wire is a collective's words
     # moved by this rank, the archives' bytes for the sharded codecs

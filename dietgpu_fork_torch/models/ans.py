@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.config import use_kernels
 from ..core.constants import (
     ANS_MAGIC,
     ANS_MAGIC_NATIVE,
@@ -57,6 +58,7 @@ from ..ops.table import (
     normalize_probs_batched,
     pack_encode_table,
 )
+from ..runtime import cuda_kernels as K
 from ..utils.profiling import span
 
 ANS_MAGIC_VERSION = (ANS_MAGIC << 16) | ANS_VERSION
@@ -301,6 +303,8 @@ class ParsedANS(NamedTuple):
     success: torch.Tensor  # bool[B]
     n: torch.Tensor  # int64[B] decoded byte counts (0 where invalid)
     csum: torch.Tensor  # int64[B] the header's checksum word
+    # int32[B, 2^prob_bits]: the decode table of pdf (``ans_parse`` sets it)
+    lut: Optional[torch.Tensor] = None
 
 
 def _ans_parse(
@@ -418,6 +422,37 @@ def _expect_sizes(p: ParsedANS, n: torch.Tensor) -> ParsedANS:
         uncomp_w=torch.where(dead, 0, p.uncomp_w), success=ok)
 
 
+def ans_parse_plain(comp32, base32, out_capacity, capacities, prob_bits,
+                    native=True, expect_n=None) -> ParsedANS:
+    """K16's contract: ``_ans_parse``, then ``_expect_sizes`` where expect_n
+    (int64[B]) is given, then the decode table of the pdf
+    (``build_decode_table_batched``) as the result's lut."""
+    p = _ans_parse(comp32, base32, out_capacity, capacities, prob_bits, native)
+    if expect_n is not None:
+        p = _expect_sizes(p, expect_n)
+    return p._replace(lut=from_u32(build_decode_table_batched(p.pdf, prob_bits)))
+
+
+def ans_parse(comp32, base32, out_capacity, capacities, prob_bits,
+              native=True, expect_n=None) -> ParsedANS:
+    """The parse, the expected-size check and the decode table of every
+    member (``ans_parse_plain``'s result): one launch of K16 for a CUDA
+    tensor (``csrc/ans_parse.cu``), the plain version for a CPU tensor.
+    comp32 int32[B, CW] contiguous; base32, capacities and expect_n [B] of
+    any integer type (capacities and expect_n may be None)."""
+    if not use_kernels(comp32):
+        return ans_parse_plain(comp32, base32, out_capacity, capacities,
+                               prob_bits, native, expect_n)
+
+    def i64(t):
+        return None if t is None else t.to(device=comp32.device,
+                                            dtype=torch.int64).contiguous()
+
+    return ParsedANS(*K.ans_parse(comp32, i64(base32), out_capacity,
+                                  i64(capacities), prob_bits, native,
+                                  i64(expect_n)))
+
+
 def _ans_decode(comp32, base32, out_capacity, capacities, prob_bits, native,
                 plain, raw_off=None, sec2_off=None, bf16=False, expect_n=None):
     """Parse, then one in-place decode of every member; the epilogue as
@@ -425,14 +460,12 @@ def _ans_decode(comp32, base32, out_capacity, capacities, prob_bits, native,
     decoded size is not this before the decode (``_expect_sizes``).
     Returns (out, ParsedANS)."""
     with span("stage:ans.parse"):
-        p = _ans_parse(comp32, base32, out_capacity, capacities, prob_bits, native)
-        if expect_n is not None:
-            p = _expect_sizes(p, expect_n)
-        lut = from_u32(build_decode_table_batched(p.pdf, prob_bits))
+        p = (ans_parse_plain if plain else ans_parse)(
+            comp32, base32, out_capacity, capacities, prob_bits, native, expect_n)
     with span("stage:ans.decode"):
         decode = decode_at_plain if plain else decode_at
         out = decode(comp32.reshape(-1), p.seg_off, p.seg_len, p.comp_w,
-                     p.uncomp_w, p.state_off, lut, prob_bits, raw_off=raw_off,
+                     p.uncomp_w, p.state_off, p.lut, prob_bits, raw_off=raw_off,
                      sec2_off=sec2_off, bf16=bf16, rows=native)
     return out, p
 

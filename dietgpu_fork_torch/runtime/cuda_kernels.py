@@ -29,10 +29,12 @@ from typing import Dict, List, Sequence
 import torch
 
 from ..core.constants import (
+    BLOCK_SIZE,
     FLOAT_WORD_SIZE,
     MAX_BLOCK_WORDS32,
     MAX_ROW_WORDS32,
     NUM_SYMBOLS,
+    VALID_PROB_BITS,
     WARP_SIZE,
     FloatType,
     sparse_bitmap_bytes,
@@ -55,6 +57,7 @@ SOURCES = (
     "sparse_expand.cu",
     "lookup.cu",
     "word_ranks.cu",
+    "ans_parse.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -87,6 +90,7 @@ launches: Dict[str, int] = {
     "chunked_lookup": 0,
     "rowwise_lookup": 0,
     "word_ranks": 0,
+    "ans_parse": 0,
 }
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
@@ -186,6 +190,8 @@ def library() -> ctypes.CDLL:
         "dgt_rowwise_lookup": [P, L, L, P, L, P, P],
         "dgt_rans_encode_ctas_per_sm": [I],
         "dgt_word_ranks": [P, L, L, P, P, L, P, P],
+        "dgt_ans_parse": [P, L, L, P, P, L, P, I, I, L,
+                          P, P, P, P, P, P, P, P, P, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -728,4 +734,51 @@ def rowwise_lookup(tables: torch.Tensor, idx: torch.Tensor):
                                      out.data_ptr(), _stream(idx))
     _check(lib, err, "rowwise_lookup")
     launches["rowwise_lookup"] += 1
+    return out
+
+
+@spanned("kernel:ans_parse")
+def ans_parse(comp32: torch.Tensor, base: torch.Tensor, out_capacity: int,
+              caps, prob_bits: int, native: bool, expect_n):
+    """K16 launch; arguments as ``models.ans.ans_parse_plain``, with base,
+    caps and expect_n contiguous int64[B] (caps and expect_n may be None).
+    Returns the fields of ``models.ans.ParsedANS`` in its order, the decode
+    table last."""
+    opt = tuple(t for t in (caps, expect_n) if t is not None)
+    _cuda_only(comp32, base, *opt)
+    if comp32.dtype != torch.int32 or comp32.dim() != 2 or comp32.numel() == 0:
+        raise TypeError("comp32 must be a non-empty 2-D torch.int32 tensor")
+    if not comp32.is_contiguous():
+        raise ValueError("comp32 must be contiguous")
+    B, CW = comp32.shape
+    _batch_ok(B)
+    for name, t in (("base", base), ("caps", caps), ("expect_n", expect_n)):
+        if t is None:
+            continue
+        if t.dtype != torch.int64 or tuple(t.shape) != (B,) or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous int64 of shape ({B},)")
+        if t.device != comp32.device:
+            raise ValueError("all inputs must lie on one device")
+    if prob_bits not in VALID_PROB_BITS:
+        raise ValueError(f"prob_bits must be one of {VALID_PROB_BITS}")
+    NB = max(1, -(-out_capacity // BLOCK_SIZE))
+    NSEG = -(-NB // 4) if native else NB
+    dev = comp32.device
+
+    def empty(shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = (empty((B, NSEG)), empty((B, NSEG)), empty((B, NB), torch.int32),
+           empty((B, NB), torch.int32), empty((B,)), empty((B, NUM_SYMBOLS)),
+           empty((B,), torch.bool), empty((B,)), empty((B,)),
+           empty((B, 1 << prob_bits), torch.int32))
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.dgt_ans_parse(
+            comp32.data_ptr(), B, CW, base.data_ptr(),
+            None if caps is None else caps.data_ptr(), out_capacity,
+            None if expect_n is None else expect_n.data_ptr(), prob_bits,
+            int(native), NB, *[t.data_ptr() for t in out], _stream(comp32))
+    _check(lib, err, "ans_parse")
+    launches["ans_parse"] += 1
     return out
