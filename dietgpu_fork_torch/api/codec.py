@@ -14,12 +14,12 @@ and only metadata (sizes, magics, float types, success flags, checksums)
 is read back to the host. Each compress and decompress entry returns the
 reference's temp-memory high-water estimate (``runtime/stack_memory.py``).
 
-The archive layout: ``native=None`` picks the row-stream layout (0xDB0D)
-on a CUDA tensor and the classic one (0xD00D, the CUDA reference's) on a
-CPU tensor, as the JAX package picks native on the TPU only. Decompress
-reads the layout from the archives. ``sparse=True`` runs the sparse float
-codec (``models/sparse.py``) wherever the JAX API takes it: a nonzero
-bitmap ahead of a dense archive of the nonzero floats.
+The archive layout: ``native=None`` picks the row-stream layout on a CUDA
+tensor and the classic one (the CUDA reference's) on a CPU tensor, as the
+JAX package picks native on the TPU only. On decompress it passes to the
+models, which read the layout from the archives. ``sparse=True`` runs the
+sparse float codec (``models/sparse.py``) wherever the JAX API takes it: a
+nonzero bitmap ahead of a dense archive of the nonzero floats.
 """
 
 from __future__ import annotations
@@ -44,20 +44,20 @@ from ..models.ans import (
     ans_decode_padded,
     ans_encode_padded,
     ans_get_compressed_info,
+    read_layout,
 )
 from ..models.float_codec import (
-    FLOAT_MAGIC_VERSION2,
-    _align_section,
-    _section_word_counts,
+    archive_float_type,
+    archive_layout,
     float_compress_padded,
     float_decompress_core,
     float_get_compressed_info,
 )
 from ..models.sparse import (
+    dense_base,
     sparse_float_compress_padded,
     sparse_float_decompress_core,
 )
-from ..ops.bitmap_pack import bitmap_words
 from ..ops.bitops import to_u32
 from ..ops.histogram import checksum_rows
 from ..ops.merge import runs_merge
@@ -321,67 +321,40 @@ def _comp_matrix(comps: Union[Sequence[torch.Tensor], torch.Tensor]) -> torch.Te
     return buf
 
 
-def _dense_offsets(m32: torch.Tensor, sparse: bool) -> torch.Tensor:
-    """int64[B] word offsets of the float archives in rows of u32 words:
-    0, or past each sparse member's header and bitmap."""
-    if not sparse:
-        return torch.zeros(m32.shape[0], dtype=torch.int64, device=m32.device)
-    return 4 + bitmap_words(m32[:, 0].to(torch.int64).clamp(min=0))
+def _float_bases(m32: torch.Tensor, sparse: bool) -> torch.Tensor:
+    """int64[B] word offsets of the float archives in the rows: 0, or where
+    each sparse member's count places its dense archive."""
+    if sparse:
+        return dense_base(m32)
+    return torch.zeros(m32.shape[0], dtype=torch.int64, device=m32.device)
 
 
 def _float_type_from(m: torch.Tensor, dtype, sparse: bool = False) -> FloatType:
     """The float type of ``dtype``, or else of member 0's float header."""
     if dtype is not None:
         return float_type_of(dtype)
-    m32 = m.view(torch.int32)
-    with span("sync:api.float_type"):
-        off = int(_dense_offsets(m32[:1], sparse)[0])
-        return FloatType(int(m32[0, min(off + 2, m32.shape[1] - 1)]) & 0xF)
+    m32 = m.view(torch.int32)[:1]
+    return archive_float_type(m32, _float_bases(m32, sparse))
 
 
-@spanned("stage:api.layout")
 def detect_native_layout(
     compress_as_float: bool,
     m: torch.Tensor,
     sparse: bool = False,
     float_type: Optional[FloatType] = None,
 ) -> bool:
-    """Read the (embedded) ANS archive magic of each member and decide the
-    layout: True = row-stream (0xDB0D), False = classic (0xD00D). Archives
-    are self-describing; the read is one copy of B words to the host.
-    Raises on a batch that mixes layouts (one staging shape per call).
-    Unrecognised magics (garbage rows) count as classic: decode folds them
-    into per-member failure. sparse: float archives behind a sparse header
-    and bitmap, whose size each member's float count sets."""
+    """The layout of the archives' (embedded) ANS archives: True for
+    row-stream, False for classic, as decompress reads it with
+    ``native=None`` (``models.ans.read_layout``: one copy of B words to the
+    host; raises on a batch that mixes layouts; a garbage row does not
+    vote). sparse: float archives behind a sparse header and bitmap."""
     m32 = _comp_matrix(m).view(torch.int32)
-    B, CW = m32.shape
+    base = _float_bases(m32, sparse and compress_as_float)
     if not compress_as_float:
-        magic = m32[:, 0]
-    else:
-        ft = (_float_type_from(m32.view(torch.uint8), None, sparse)
-              if float_type is None else FloatType(float_type))
-        base = _dense_offsets(m32, sparse)
-
-        def word(k):
-            return torch.gather(m32, 1, (base + k).clamp(0, CW - 1)[:, None])[:, 0]
-
-        hdr0 = to_u32(word(0))
-        s1w, s2w = _section_word_counts(word(1).to(torch.int64).clamp(min=0), ft)
-        # v2 (aligned) containers place the sections on 128-word boundaries
-        off = base + torch.where(hdr0 == FLOAT_MAGIC_VERSION2,
-                                 128 + _align_section(s1w) + _align_section(s2w),
-                                 8 + s1w + s2w)
-        magic = torch.gather(m32, 1, off.clamp(0, CW - 1)[:, None])[:, 0]
-    with span("sync:api.layout"):
-        magic = (to_u32(magic) >> 16).cpu()
-    is_nat = magic == 0xDB0D
-    is_cls = magic == 0xD00D
-    if bool(is_nat.any()) and bool(is_cls.any()):
-        raise ValueError(
-            "batch mixes classic (0xD00D) and native (0xDB0D) ANS layouts; "
-            "decompress them in separate calls or pass native= explicitly"
-        )
-    return bool(is_nat.any())
+        return read_layout(m32, base)
+    ft = (archive_float_type(m32, base) if float_type is None
+          else FloatType(float_type))
+    return archive_layout(m32, base, ft)
 
 
 @spanned("stage:api.status")
@@ -416,8 +389,6 @@ def _decode_rows(compress_as_float, m, cap, caps, dtype, checksum, prob_bits,
             caps_t = torch.tensor(caps, dtype=torch.int64, device=m.device)
     if compress_as_float:
         ft = _float_type_from(m, dtype, sparse)
-        if native is None:
-            native = detect_native_layout(True, m, sparse, ft)
         if sparse:
             rows, success, sizes, ca, cg = sparse_float_decompress_core(
                 m.view(torch.int32), max(cap, 1), ft, prob_bits, caps_t,
@@ -430,8 +401,6 @@ def _decode_rows(compress_as_float, m, cap, caps, dtype, checksum, prob_bits,
         temp = sm.float_decompress_temp_size(B, cap, ft, prob_bits)
     else:
         ft = None
-        if native is None:
-            native = detect_native_layout(False, m)
         rows, success, sizes, ca = ans_decode_padded(
             m, max(cap, 1), prob_bits, caps_t, native)
         cg = checksum_rows(rows, sizes) if checksum else None

@@ -41,12 +41,7 @@ from ..ops.bitops import from_u32, to_i32, to_u32
 from ..ops.checksum import checksum_packed
 from ..ops.histogram import byte_hist, byte_hist_plain, checksum_rows
 from ..ops.merge import runs_merge, runs_merge_plain
-from ..ops.rans_decode import (
-    BLOCK_STREAM_CAP,
-    ROW_STREAM_CAP,
-    decode_at,
-    decode_at_plain,
-)
+from ..ops.rans_decode import decode_at, decode_at_plain
 from ..ops.rans_encode import (
     encode_blocks,
     encode_blocks_plain,
@@ -64,10 +59,6 @@ from ..utils.profiling import span
 ANS_MAGIC_VERSION = (ANS_MAGIC << 16) | ANS_VERSION
 ANS_MAGIC_NATIVE_VERSION = (ANS_MAGIC_NATIVE << 16) | ANS_VERSION
 META_WORDS = 136  # header (8) + packed pdf table (128)
-# the widths of start-aligned staged streams (the staged decode forms): the
-# decode's stream caps, the worst-case row or block plus slack
-STAGE_ROW_WORDS32 = ROW_STREAM_CAP
-STAGE_BLOCK_WORDS32 = BLOCK_STREAM_CAP
 
 # source indices of EncodedRuns.src_ref
 SRC_META, SRC_PAIRS, SRC_STREAMS = 0, 1, 2
@@ -470,6 +461,27 @@ def _ans_decode(comp32, base32, out_capacity, capacities, prob_bits, native,
     return out, p
 
 
+def read_layout(comp32: torch.Tensor, word_off: torch.Tensor) -> bool:
+    """The layout of the ANS archives at word offsets word_off (int64[B],
+    clamped into the rows) of comp32's rows (int32[B, CW]): True for
+    row-stream (ANS_MAGIC_NATIVE), False for classic (ANS_MAGIC). One
+    gather of each member's magic and one read of B words to the host.
+    Raises ValueError on a batch that mixes the layouts (one staging shape
+    per call). A word that holds neither magic (a garbage row) does not
+    vote: the decode folds it into the member's failure."""
+    i = word_off.to(torch.int64).clamp(0, comp32.shape[1] - 1)
+    magic = torch.gather(comp32, 1, i[:, None])[:, 0]
+    with span("sync:ans.layout"):
+        magic = (to_u32(magic) >> 16).cpu()
+    is_nat = magic == ANS_MAGIC_NATIVE
+    if bool(is_nat.any()) and bool((magic == ANS_MAGIC).any()):
+        raise ValueError(
+            "batch mixes classic (0xD00D) and native (0xDB0D) ANS layouts; "
+            "decompress them in separate calls or pass native= explicitly"
+        )
+    return bool(is_nat.any())
+
+
 def ans_decode_core(
     comp32: torch.Tensor,
     base32: torch.Tensor,
@@ -561,22 +573,23 @@ def ans_decode_padded(
     out_capacity: int,
     prob_bits: int = DEFAULT_PROB_BITS,
     capacities: Optional[torch.Tensor] = None,
-    native: bool = True,
+    native: Optional[bool] = True,
     plain: bool = False,
 ):
     """Byte-row wrapper around ``ans_decode_core``: archives at the starts
     of comp_u8's rows (uint8[B, C]) -> (out uint8[B, out_capacity], zero
-    past each member's size; success bool[B]; n int64[B]; csum int64[B])."""
+    past each member's size; success bool[B]; n int64[B]; csum int64[B]).
+    native=None reads the layout from the archives (``read_layout``)."""
     if comp_u8.dtype != torch.uint8 or comp_u8.dim() != 2:
         raise TypeError("comp_u8 must be a 2-D torch.uint8 tensor")
     C = comp_u8.shape[1]
     comp_u8 = F.pad(comp_u8, (0, -C % 4)) if C % 4 else comp_u8.contiguous()
-    B = comp_u8.shape[0]
+    comp32 = comp_u8.view(torch.int32)
+    base = torch.zeros(comp32.shape[0], dtype=torch.int64, device=comp32.device)
+    if native is None:
+        native = read_layout(comp32, base)
     out32, success, n, csum = ans_decode_core(
-        comp_u8.view(torch.int32),
-        torch.zeros(B, dtype=torch.int64, device=comp_u8.device),
-        out_capacity, prob_bits, capacities, native, plain,
-    )
+        comp32, base, out_capacity, prob_bits, capacities, native, plain)
     return out32.contiguous().view(torch.uint8)[:, :out_capacity], success, n, csum
 
 

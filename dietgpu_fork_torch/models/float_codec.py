@@ -41,7 +41,6 @@ import torch
 import torch.nn.functional as F
 
 from ..core.constants import (
-    BLOCK_SIZE,
     DEFAULT_PROB_BITS,
     FLOAT_ALIGN_MIN,
     FLOAT_MAGIC,
@@ -51,8 +50,6 @@ from ..core.constants import (
     FLOAT_VERSION_ALIGNED,
     FLOAT_WORD_SIZE,
     FloatType,
-    MAX_BLOCK_WORDS32,
-    max_compressed_size,
     max_float_compressed_size,
 )
 from ..ops.bitmap_pack import floats_capacity
@@ -72,14 +69,15 @@ from ..ops.histogram import checksum_rows
 from ..ops.merge import runs_merge, runs_merge_plain
 from ..utils.profiling import span, spanned
 from .ans import (
-    META_WORDS,
     SRC_META,
     SRC_PAIRS,
     SRC_STREAMS,
+    _tight_bytes,
     ans_decode_core,
     ans_decode_join16_core,
     ans_decode_join32_core,
     ans_encode_sections,
+    read_layout,
 )
 
 FLOAT_MAGIC_VERSION = (FLOAT_MAGIC << 16) | FLOAT_VERSION
@@ -108,6 +106,20 @@ def _section_word_counts(n, ft: FloatType):
     return r(n, 4), r(n, 8) // 2
 
 
+def _sections(n, is_al, ft: FloatType):
+    """The placement of a float archive's sections for n floats (int64[B])
+    in v2 (is_al, bool[B]) or v1 containers: ((o_s1, o_s2, o_ans), the word
+    offsets from the archive's start of raw section 1, raw section 2 and
+    the first ANS archive; (s1w, s2w), the sections' word counts). 16-bit
+    types have no section 2: their o_ans is o_s2."""
+    s1w, s2w = _section_word_counts(n, ft)
+    o_s1 = torch.where(is_al, 128, 8)
+    o_s2 = o_s1 + torch.where(is_al, _align_section(s1w), s1w)
+    o_ans = (o_s2 if ft in _FLOAT16_TYPES
+             else o_s2 + torch.where(is_al, _align_section(s2w), s2w))
+    return (o_s1, o_s2, o_ans), (s1w, s2w)
+
+
 def _check_type(float_type) -> FloatType:
     ft = FloatType(float_type)
     if ft not in FLOAT_WORD_SIZE:
@@ -120,15 +132,9 @@ def archive_row_words(W32: int, float_type: FloatType) -> int:
     for the type), the JAX package's ``float_codec.py:176-192``."""
     ft = FloatType(float_type)
     S_cap = 4 * W32 // FLOAT_WORD_SIZE[ft]
-    NBp = max(1, -(-S_cap // BLOCK_SIZE))
-    ans_tight = min(
-        max_compressed_size(S_cap),
-        -(-(4 * META_WORDS + 128 * NBp + 8 * ((NBp + 1) // 2 * 2)
-            + 4 * MAX_BLOCK_WORDS32 * NBp) // 16) * 16,
-    )
     s1w_cap, s2w_cap = _section_word_counts(S_cap, ft)
     tight = (4 * (8 + s1w_cap + s2w_cap + 3 * 128)
-             + FLOAT_NUM_COMP_SEGMENTS[ft] * ans_tight)
+             + FLOAT_NUM_COMP_SEGMENTS[ft] * _tight_bytes(S_cap))
     CWf = min(max_float_compressed_size(ft, S_cap), tight) // 4
     return -(-CWf // 128) * 128
 
@@ -193,13 +199,11 @@ def float_compress_core(
     seg_bytes = seg.comp_bytes.reshape(P, B)
 
     with span("stage:float_codec.assemble"):
-        sec_w = _section_word_counts(n64, ft)[: len(secs)]
         # v2 containers hold native members only: classic archives are v1
         is_al = (n64 >= FLOAT_ALIGN_MIN) & native
-        sec_dst = [torch.where(is_al, 128, 8)]
-        for w in sec_w:
-            sec_dst.append(sec_dst[-1] + torch.where(is_al, _align_section(w), w))
-        plane_dst = [sec_dst.pop()]  # the first ANS archive follows the sections
+        (o_s1, o_s2, o_ans), sec_w = _sections(n64, is_al, ft)
+        sec_dst, sec_w = [o_s1, o_s2][: len(secs)], sec_w[: len(secs)]
+        plane_dst = [o_ans]  # the first ANS archive follows the sections
         for p in range(P):
             plane_dst.append(plane_dst[-1] + (seg_bytes[p] >> 2))
         end = plane_dst.pop()
@@ -254,7 +258,7 @@ def float_decompress_core(
     prob_bits: int = DEFAULT_PROB_BITS,
     capacities: Optional[torch.Tensor] = None,
     verify_checksum: bool = False,
-    native: bool = True,
+    native: Optional[bool] = True,
     plain: bool = False,
     fused: Optional[bool] = None,
 ):
@@ -267,9 +271,9 @@ def float_decompress_core(
     archive's checksum int64[B]; the checksum of the decoded bytes, int64[B],
     zeros unless verify_checksum). A member fails, raising nothing, on a
     wrong header, a failed ANS validation, or n above its capacity (default
-    out_floats). native: the embedded ANS layout (the API reads it from the
-    archive). plain=True as in float_compress_core. fused picks the decode
-    formulation: True decodes and joins in one kernel (K4 for 16-bit types,
+    out_floats). native: the embedded ANS layout; None reads it from the
+    archives (``archive_layout``). plain=True as in float_compress_core.
+    fused picks the decode formulation: True decodes and joins in one kernel (K4 for 16-bit types,
     K12 for fp32; fp64 has none and raises ValueError), False decodes the
     exponent planes to bytes and joins in a second pass (K6, then K13 or
     K7), None the fused decode wherever the type has one, two-pass for
@@ -287,6 +291,8 @@ def float_decompress_core(
         comp32 = comp32.contiguous()
         B, CW = comp32.shape
         base = base32.to(device=dev, dtype=torch.int64)
+        if native is None:
+            native = archive_layout(comp32, base, ft)
 
         idx = (base[:, None] + torch.arange(8, dtype=torch.int64, device=dev)).clamp(0, CW - 1)
         hdr = to_u32(torch.gather(comp32, 1, idx))
@@ -309,10 +315,8 @@ def float_decompress_core(
             capacities = torch.full((B,), out_floats, dtype=torch.int64, device=dev)
         success = valid & (n <= capacities.to(device=dev, dtype=torch.int64))
 
-        s1w, s2w = _section_word_counts(n, ft)
-        o_s1 = torch.where(is_al, 128, 8)
-        o_s2 = o_s1 + torch.where(is_al, _align_section(s1w), s1w)
-        ans_base = base + o_s2 + torch.where(is_al, _align_section(s2w), s2w)
+        (o_s1, o_s2, o_ans), _ = _sections(n, is_al, ft)
+        ans_base = base + o_ans
         b_ar = torch.arange(B, dtype=torch.int64, device=dev)
         abs_base = b_ar * CW + base
         E = max(-(-out_floats // 4), 1)
@@ -403,6 +407,31 @@ def float_compress_padded(
     if comp.shape[1] < cb:
         comp = F.pad(comp, (0, cb - comp.shape[1]))
     return comp, comp_bytes
+
+
+def archive_layout(comp32: torch.Tensor, base32: torch.Tensor, float_type) -> bool:
+    """The ANS layout of the float archives at word offsets base32 (int64[B])
+    of comp32's rows (int32[B, CW]), as ``ans.read_layout`` reads it (and
+    raises). Each member's first ANS archive is placed from its header
+    words 0-1 as they stand, unchecked (a negative count as 0): a garbage
+    row reads some word, which does not vote."""
+    ft = FloatType(float_type)
+    base = base32.to(device=comp32.device, dtype=torch.int64)
+    k = torch.arange(2, dtype=torch.int64, device=comp32.device)
+    words = torch.gather(comp32, 1, (base[:, None] + k).clamp(0, comp32.shape[1] - 1))
+    is_al = to_u32(words[:, 0]) == FLOAT_MAGIC_VERSION2
+    (_, _, o_ans), _ = _sections(words[:, 1].to(torch.int64).clamp(min=0), is_al, ft)
+    return read_layout(comp32, base + o_ans)
+
+
+def archive_float_type(comp32: torch.Tensor, base32: torch.Tensor) -> FloatType:
+    """The float type in member 0's float header, at word base32[0] of
+    comp32's row 0 (clamped): one read to the host. Raises ValueError on a
+    word that names no type."""
+    i = (base32[:1].to(device=comp32.device, dtype=torch.int64) + 2).clamp(
+        0, comp32.shape[1] - 1)
+    with span("sync:float_codec.float_type"):
+        return FloatType(int(comp32[0, i]) & 0xF)
 
 
 def float_get_compressed_info(comp_u8: torch.Tensor):

@@ -52,7 +52,25 @@ from ..ops.sparse_stream import (
     word_ranks_plain,
 )
 from ..utils.profiling import span, spanned
-from .float_codec import _check_type, float_compress_core, float_decompress_core
+from .float_codec import (
+    _check_type,
+    archive_layout,
+    float_compress_core,
+    float_decompress_core,
+)
+
+
+def _dense_offset(n):
+    """Word offset of the dense float archive in a sparse member of n
+    floats (n >= 0): past the 4-word header and the bitmap."""
+    return 4 + bitmap_words(n)
+
+
+def dense_base(comp32: torch.Tensor) -> torch.Tensor:
+    """int64[B]: where each member's dense archive starts as its float count
+    places it before any check (a negative count as 0), in comp32's rows
+    (int32[B, CW]): the reads of the layout and the float type."""
+    return _dense_offset(comp32[:, 0].to(torch.int64).clamp(min=0))
 
 
 def sparse_float_compress_core(
@@ -100,9 +118,10 @@ def sparse_float_compress_core(
         CWs = 4 + BW + DW
         zeros = torch.zeros_like(n64)
         hdr = from_u32(torch.stack([n64, zeros, zeros, zeros], dim=1))
-        bmw = bitmap_words(n64)
+        dense_off = _dense_offset(n64)
+        bmw = dense_off - 4
         b_ar = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
-        dst = b_ar * CWs + torch.stack([zeros, zeros + 4, 4 + bmw], dim=1)
+        dst = b_ar * CWs + torch.stack([zeros, zeros + 4, dense_off], dim=1)
         with span("sync:sparse.merge_refs"):
             ref = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev).expand(B, -1)
         with span("sync:sparse.merge_strides"):
@@ -115,7 +134,7 @@ def sparse_float_compress_core(
             dst.reshape(-1), ref.reshape(-1), off.reshape(-1), lens.reshape(-1),
             B * CWs,
         ).reshape(B, CWs)
-        return out, 16 + 4 * bmw + dense_bytes
+        return out, 4 * dense_off + dense_bytes
 
 
 @spanned("model:sparse.sparse_float_decompress_core")
@@ -126,7 +145,7 @@ def sparse_float_decompress_core(
     prob_bits: int = DEFAULT_PROB_BITS,
     capacities: Optional[torch.Tensor] = None,
     verify_checksum: bool = False,
-    native: bool = True,
+    native: Optional[bool] = True,
     plain: bool = False,
 ):
     """Decompress sparse float archives (int32[B, CW] rows).
@@ -137,23 +156,29 @@ def sparse_float_decompress_core(
     zeros unless verify_checksum). A member fails, raising nothing, on a
     float count that does not fit its row, on n above its capacity (default
     out_floats), or when its dense archive fails. native and plain as in
-    ``float_decompress_core``.
+    ``float_decompress_core``; None reads the layout at each dense archive
+    where the unchecked count places it (``dense_base``), so every member
+    votes, even one whose count fails the header's checks.
     """
     ft = _check_type(float_type)
     dev = comp32.device
     comp32 = comp32.contiguous()
     B, CW = comp32.shape
     with span("stage:sparse.header"):
+        raw_off = dense_base(comp32)
+        if native is None:
+            native = archive_layout(comp32, raw_off, ft)
         # the header has no magic: a count whose sections cannot fit the row
         # fails the member before it sizes anything
         n = comp32[:, 0].to(torch.int64)
-        sane = (n >= 0) & (4 + bitmap_words(n.clamp(min=0)) + 4 <= CW)
+        sane = (n >= 0) & (raw_off + 4 <= CW)
         n = torch.where(sane, n, 0)
         if capacities is None:
             capacities = torch.full((B,), out_floats, dtype=torch.int64, device=dev)
         success = sane & (n <= capacities.to(device=dev, dtype=torch.int64))
 
-        bmw = bitmap_words(n)
+        dense_off = _dense_offset(n)
+        bmw = dense_off - 4
         BW = max(bitmap_words(out_floats), 1)
         b_ar = torch.arange(B, dtype=torch.int64, device=dev)
         merge = runs_merge_plain if plain else runs_merge
@@ -163,7 +188,7 @@ def sparse_float_decompress_core(
             bmw.clamp(max=BW), B * BW,
         ).reshape(B, BW)
     nz32, dsuccess, _, csum_arch, csum_got = float_decompress_core(
-        comp32, 4 + bmw, out_floats, ft, prob_bits, capacities,
+        comp32, dense_off, out_floats, ft, prob_bits, capacities,
         verify_checksum, native, plain)
     success = success & dsuccess
 

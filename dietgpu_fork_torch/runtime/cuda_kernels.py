@@ -9,10 +9,11 @@ with ctypes. Nothing is built or loaded when
 this module is imported.
 
 Each wrapper takes CUDA tensors that the op modules (``ops/*.py``) have
-already checked, allocates its outputs with torch, launches on the current
-stream of the tensors' device, raises if the launch failed, and adds one to
-its entry of ``launches``. Each is spanned ``kernel:<its name>`` while a
-profiler runs (``utils/profiling.py``).
+already checked, allocates its outputs with torch and launches through
+``_launch``: on the current stream of the tensors' device, with that device
+current; it raises if the launch failed and adds one to the wrapper's entry
+of ``launches``. Each is spanned ``kernel:<its name>`` while a profiler
+runs (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -214,6 +215,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(counter: str, entry: str, t: torch.Tensor, *args) -> None:
+    """One call of the library's C entry ``entry`` with args, on the
+    current stream of t's device and with that device current: raises if
+    the launch failed, and adds one to ``launches[counter]``."""
+    lib = library()
+    with torch.cuda.device(t.device):
+        err = getattr(lib, entry)(*args, _stream(t))
+    _check(lib, err, counter)
+    launches[counter] += 1
+
+
 def _cuda_only(*ts: torch.Tensor) -> None:
     for t in ts:
         if not t.is_cuda:
@@ -236,14 +248,9 @@ def split16_hist(data32: torch.Tensor, n: torch.Tensor, bf16: bool):
     raw = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
     hist = torch.zeros((B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
     csum = torch.zeros((B,), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_split16_hist(
-            data32.data_ptr(), B, W32, n.data_ptr(), int(bf16), exp.data_ptr(),
-            raw.data_ptr(), hist.data_ptr(), csum.data_ptr(), _stream(data32),
-        )
-    _check(lib, err, "split16_hist")
-    launches["split16_hist"] += 1
+    _launch("split16_hist", "dgt_split16_hist", data32, data32.data_ptr(), B,
+            W32, n.data_ptr(), int(bf16), exp.data_ptr(), raw.data_ptr(),
+            hist.data_ptr(), csum.data_ptr())
     return exp, raw, hist, csum
 
 
@@ -259,15 +266,9 @@ def _encode(fn: str, counter: str, x32, sizes, packed, magic, prob_bits: int,
     shape = (B, NB, MAX_BLOCK_WORDS32) if classic else (B, NR, MAX_ROW_WORDS32)
     streams = torch.empty(shape, dtype=torch.int32, device=dev)
     num_words = torch.empty((B, NB), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn)(
-            x32.data_ptr(), sizes.data_ptr(), packed.data_ptr(),
-            magic.data_ptr(), B, NB, prob_bits, states.data_ptr(),
-            streams.data_ptr(), num_words.data_ptr(), _stream(x32),
-        )
-    _check(lib, err, counter)
-    launches[counter] += 1
+    _launch(counter, fn, x32, x32.data_ptr(), sizes.data_ptr(),
+            packed.data_ptr(), magic.data_ptr(), B, NB, prob_bits,
+            states.data_ptr(), streams.data_ptr(), num_words.data_ptr())
     return states, streams, num_words
 
 
@@ -313,15 +314,9 @@ def runs_merge(srcs: Sequence[torch.Tensor], dst, ref, off, lens, out_len: int):
         return out
     ptrs = (ctypes.c_void_p * MAX_MERGE_SOURCES)(*[s.data_ptr() for s in srcs])
     src_len = (ctypes.c_longlong * MAX_MERGE_SOURCES)(*[s.numel() for s in srcs])
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_runs_merge(
-            ctypes.addressof(ptrs), ctypes.addressof(src_len), len(srcs),
-            dst.data_ptr(), ref.data_ptr(), off.data_ptr(), lens.data_ptr(),
-            dst.shape[0], out.data_ptr(), out_len, _stream(dst),
-        )
-    _check(lib, err, "runs_merge")
-    launches["runs_merge"] += 1
+    _launch("runs_merge", "dgt_runs_merge", dst, ctypes.addressof(ptrs),
+            ctypes.addressof(src_len), len(srcs), dst.data_ptr(), ref.data_ptr(),
+            off.data_ptr(), lens.data_ptr(), dst.shape[0], out.data_ptr(), out_len)
     return out
 
 
@@ -343,18 +338,13 @@ def _decode(counter: str, epi: int, classic: bool, words, seg_off, seg_len,
     _batch_ok(B)
     dev = words.device
     out = torch.empty((B, NB, 1024 << epi), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_rans_decode(
-            epi, int(classic), words.data_ptr(), words.numel(),
-            seg_off.data_ptr(), seg_len.data_ptr(), comp_w.data_ptr(),
-            uncomp_w.data_ptr(), state_off.data_ptr(), lut.data_ptr(),
-            prob_bits, None if raw_off is None else raw_off.data_ptr(),
+    _launch(counter, "dgt_rans_decode", words, epi, int(classic),
+            words.data_ptr(), words.numel(), seg_off.data_ptr(),
+            seg_len.data_ptr(), comp_w.data_ptr(), uncomp_w.data_ptr(),
+            state_off.data_ptr(), lut.data_ptr(), prob_bits,
+            None if raw_off is None else raw_off.data_ptr(),
             None if sec2_off is None else sec2_off.data_ptr(), B, NB,
-            int(bf16), out.data_ptr(), _stream(words),
-        )
-    _check(lib, err, counter)
-    launches[counter] += 1
+            int(bf16), out.data_ptr())
     return out
 
 
@@ -421,15 +411,9 @@ def split_wide_hist(data32: torch.Tensor, n: torch.Tensor, float_type):
     sec2 = torch.empty((B, W32 // 4), dtype=torch.int32, device=dev)
     hist = torch.zeros((P * B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
     csum = torch.zeros((B,), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_split_wide_hist(
-            data32.data_ptr(), B, W32, n.data_ptr(), int(fp64), exp.data_ptr(),
-            sec1.data_ptr(), sec2.data_ptr(), hist.data_ptr(), csum.data_ptr(),
-            _stream(data32),
-        )
-    _check(lib, err, "split_wide_hist")
-    launches["split_wide_hist"] += 1
+    _launch("split_wide_hist", "dgt_split_wide_hist", data32, data32.data_ptr(),
+            B, W32, n.data_ptr(), int(fp64), exp.data_ptr(), sec1.data_ptr(),
+            sec2.data_ptr(), hist.data_ptr(), csum.data_ptr())
     return exp, sec1, sec2, hist, csum
 
 
@@ -442,12 +426,8 @@ def split16(data32: torch.Tensor, bf16: bool):
     dev = data32.device
     exp = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
     raw = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_split16(data32.data_ptr(), B, W32, int(bf16),
-                              exp.data_ptr(), raw.data_ptr(), _stream(data32))
-    _check(lib, err, "split16")
-    launches["split16"] += 1
+    _launch("split16", "dgt_split16", data32, data32.data_ptr(), B, W32,
+            int(bf16), exp.data_ptr(), raw.data_ptr())
     return exp, raw
 
 
@@ -465,13 +445,8 @@ def split_wide(data32: torch.Tensor, float_type):
     exp = torch.empty((P * B, E), dtype=torch.int32, device=dev)
     sec1 = torch.empty((B, W32 // 2), dtype=torch.int32, device=dev)
     sec2 = torch.empty((B, W32 // 4), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_split_wide(data32.data_ptr(), B, W32, int(fp64),
-                                 exp.data_ptr(), sec1.data_ptr(),
-                                 sec2.data_ptr(), _stream(data32))
-    _check(lib, err, "split_wide")
-    launches["split_wide"] += 1
+    _launch("split_wide", "dgt_split_wide", data32, data32.data_ptr(), B, W32,
+            int(fp64), exp.data_ptr(), sec1.data_ptr(), sec2.data_ptr())
     return exp, sec1, sec2
 
 
@@ -492,18 +467,12 @@ def _join(counter: str, float_type, planes, sec1, sec2, nwords: int, s1, s2,
     if E == 0:
         return out
     at = count is not None
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_join(
-            planes[0].data_ptr(), planes[0].stride(0), exp1.data_ptr(),
-            exp1.stride(0), sec1.data_ptr(), sec2.data_ptr(), nwords,
-            s1.data_ptr() if at else None, s2.data_ptr() if at else None,
-            0 if at else s1, 0 if at else s2,
+    _launch(counter, "dgt_join", sec1, planes[0].data_ptr(), planes[0].stride(0),
+            exp1.data_ptr(), exp1.stride(0), sec1.data_ptr(), sec2.data_ptr(),
+            nwords, s1.data_ptr() if at else None,
+            s2.data_ptr() if at else None, 0 if at else s1, 0 if at else s2,
             count.data_ptr() if at else None, B, E, ws,
-            int(ft == FloatType.BFLOAT16), out.data_ptr(), _stream(sec1),
-        )
-    _check(lib, err, counter)
-    launches[counter] += 1
+            int(ft == FloatType.BFLOAT16), out.data_ptr())
     return out
 
 
@@ -565,19 +534,13 @@ def byte_hist(rows: torch.Tensor, sizes: torch.Tensor, hist: bool = True, /):
         raise ValueError("each row's bytes must be contiguous")
     csum = torch.zeros((B,), dtype=torch.int32 if hist else torch.int64,
                        device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        if hist:
-            err = lib.dgt_byte_hist(rows.data_ptr(), B, S, sizes.data_ptr(),
-                                    counts.data_ptr(), csum.data_ptr(),
-                                    _stream(rows))
-        else:
-            err = lib.dgt_byte_checksum(rows.data_ptr(), B, rows.stride(0), S,
-                                        sizes.data_ptr(), csum.data_ptr(),
-                                        _stream(rows))
-    _check(lib, err, "byte_hist")
-    launches["byte_hist"] += 1
-    return (counts if hist else None), csum
+    if hist:
+        _launch("byte_hist", "dgt_byte_hist", rows, rows.data_ptr(), B, S,
+                sizes.data_ptr(), counts.data_ptr(), csum.data_ptr())
+        return counts, csum
+    _launch("byte_hist", "dgt_byte_checksum", rows, rows.data_ptr(), B,
+            rows.stride(0), S, sizes.data_ptr(), csum.data_ptr())
+    return None, csum
 
 
 def _rows_i32(t: torch.Tensor, shape, name: str) -> None:
@@ -600,12 +563,8 @@ def pack_bitmap(data32: torch.Tensor, n: torch.Tensor, float_type):
     s_cap = 4 * W32 // ws
     bw = sparse_bitmap_bytes(s_cap) // 4
     out = torch.empty((B, bw), dtype=torch.int32, device=data32.device)
-    lib = library()
-    with torch.cuda.device(data32.device):
-        err = lib.dgt_bitmap_pack(data32.data_ptr(), B, W32, s_cap, n.data_ptr(),
-                                  bw, ws, out.data_ptr(), _stream(data32))
-    _check(lib, err, "bitmap_pack")
-    launches["bitmap_pack"] += 1
+    _launch("bitmap_pack", "dgt_bitmap_pack", data32, data32.data_ptr(), B,
+            W32, s_cap, n.data_ptr(), bw, ws, out.data_ptr())
     return out
 
 
@@ -629,13 +588,8 @@ def word_ranks(bm32: torch.Tensor, n: torch.Tensor):
     tiles = B * max(1, -(-BW // RANK_TILE_WORDS))
     tsum = torch.empty((tiles,), dtype=torch.int32, device=dev)
     out = torch.empty((B, BW + 1), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_word_ranks(bm32.data_ptr(), B, BW, n.data_ptr(),
-                                 tsum.data_ptr(), tiles, out.data_ptr(),
-                                 _stream(bm32))
-    _check(lib, err, "word_ranks")
-    launches["word_ranks"] += 1
+    _launch("word_ranks", "dgt_word_ranks", bm32, bm32.data_ptr(), B, BW,
+            n.data_ptr(), tsum.data_ptr(), tiles, out.data_ptr())
     return out
 
 
@@ -657,13 +611,9 @@ def compact_by_bitmap(data32: torch.Tensor, bm32: torch.Tensor,
         raise ValueError(f"{BW} bitmap words cannot cover {s_cap} floats")
     ow = -(-s_cap * ws // 4)
     out = torch.empty((B, ow), dtype=torch.int32, device=data32.device)
-    lib = library()
-    with torch.cuda.device(data32.device):
-        err = lib.dgt_sparse_compact(
-            data32.data_ptr(), B, W32, s_cap, bm32.data_ptr(), ranks.data_ptr(),
-            BW, ws, out.data_ptr(), ow, _stream(data32))
-    _check(lib, err, "sparse_compact")
-    launches["sparse_compact"] += 1
+    _launch("sparse_compact", "dgt_sparse_compact", data32, data32.data_ptr(), B,
+            W32, s_cap, bm32.data_ptr(), ranks.data_ptr(), BW, ws,
+            out.data_ptr(), ow)
     return out, ranks[:, -1]
 
 
@@ -688,13 +638,9 @@ def expand_by_bitmap(nz32: torch.Tensor, bm32: torch.Tensor,
         raise ValueError(f"bad shapes: {out_floats} floats out of {nz_cap} "
                          f"nonzero slots and {BW} bitmap words")
     out = torch.empty((B, ow), dtype=torch.int32, device=nz32.device)
-    lib = library()
-    with torch.cuda.device(nz32.device):
-        err = lib.dgt_sparse_expand(
-            nz32.data_ptr(), B, NZW, nz_cap, bm32.data_ptr(), ranks.data_ptr(),
-            BW, n.data_ptr(), ws, out.data_ptr(), ow, _stream(nz32))
-    _check(lib, err, "sparse_expand")
-    launches["sparse_expand"] += 1
+    _launch("sparse_expand", "dgt_sparse_expand", nz32, nz32.data_ptr(), B, NZW,
+            nz_cap, bm32.data_ptr(), ranks.data_ptr(), BW, n.data_ptr(), ws,
+            out.data_ptr(), ow)
     return out
 
 
@@ -709,12 +655,8 @@ def chunked_lookup(tables: torch.Tensor, idx: torch.Tensor):
     out = torch.empty((B, N), dtype=torch.int32, device=idx.device)
     if N == 0:
         return out
-    lib = library()
-    with torch.cuda.device(idx.device):
-        err = lib.dgt_chunked_lookup(tables.data_ptr(), B, H, idx.data_ptr(), N,
-                                     out.data_ptr(), _stream(idx))
-    _check(lib, err, "chunked_lookup")
-    launches["chunked_lookup"] += 1
+    _launch("chunked_lookup", "dgt_chunked_lookup", idx, tables.data_ptr(), B,
+            H, idx.data_ptr(), N, out.data_ptr())
     return out
 
 
@@ -728,12 +670,8 @@ def rowwise_lookup(tables: torch.Tensor, idx: torch.Tensor):
     out = torch.empty((R, K), dtype=torch.int32, device=idx.device)
     if R == 0 or K == 0:
         return out
-    lib = library()
-    with torch.cuda.device(idx.device):
-        err = lib.dgt_rowwise_lookup(tables.data_ptr(), R, H, idx.data_ptr(), K,
-                                     out.data_ptr(), _stream(idx))
-    _check(lib, err, "rowwise_lookup")
-    launches["rowwise_lookup"] += 1
+    _launch("rowwise_lookup", "dgt_rowwise_lookup", idx, tables.data_ptr(), R,
+            H, idx.data_ptr(), K, out.data_ptr())
     return out
 
 
@@ -772,13 +710,8 @@ def ans_parse(comp32: torch.Tensor, base: torch.Tensor, out_capacity: int,
            empty((B, NB), torch.int32), empty((B,)), empty((B, NUM_SYMBOLS)),
            empty((B,), torch.bool), empty((B,)), empty((B,)),
            empty((B, 1 << prob_bits), torch.int32))
-    lib = library()
-    with torch.cuda.device(dev):
-        err = lib.dgt_ans_parse(
-            comp32.data_ptr(), B, CW, base.data_ptr(),
-            None if caps is None else caps.data_ptr(), out_capacity,
-            None if expect_n is None else expect_n.data_ptr(), prob_bits,
-            int(native), NB, *[t.data_ptr() for t in out], _stream(comp32))
-    _check(lib, err, "ans_parse")
-    launches["ans_parse"] += 1
+    _launch("ans_parse", "dgt_ans_parse", comp32, comp32.data_ptr(), B, CW,
+            base.data_ptr(), None if caps is None else caps.data_ptr(),
+            out_capacity, None if expect_n is None else expect_n.data_ptr(),
+            prob_bits, int(native), NB, *[t.data_ptr() for t in out])
     return out

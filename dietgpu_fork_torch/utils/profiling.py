@@ -36,7 +36,7 @@ name in a trace. Names are ``<family>:<where>``:
 * ``kernel:<wrapper>``: each public kernel wrapper of
   ``runtime/cuda_kernels.py``, by its function name;
 * ``stage:<module>.<stage>``: the stages of the paths, where they run:
-  ``api.pack_rows``, ``api.layout``, ``api.outputs``, ``api.status``;
+  ``api.pack_rows``, ``api.outputs``, ``api.status``;
   ``float_codec.split``, ``ans.table``, ``ans.encode``, ``ans.runs``,
   ``float_codec.assemble`` (compress); ``float_codec.header``,
   ``ans.parse``, ``ans.decode``, ``float_codec.join``,
@@ -53,8 +53,6 @@ name in a trace. Names are ``<family>:<where>``:
   - ``api.split_sizes``: ``pack_split_rows``, the split sizes and offsets;
   - ``api.simple_sizes``: ``compress_data_simple`` and
     ``decompress_data_simple``, the sizes read to the host;
-  - ``api.float_type``: ``_float_type_from``, member 0's float header;
-  - ``api.layout``: ``detect_native_layout``, the archives' magics;
   - ``api.caps``: ``_decode_rows``, the output capacities;
   - ``api.status``: ``_checksum_status``, success and both checksums;
   - ``api.sizes``: ``decompress_data`` and ``decompress_data_split_size``,
@@ -64,12 +62,17 @@ name in a trace. Names are ``<family>:<where>``:
     checked against the rows;
   - ``float_codec.merge_refs``: ``float_compress_core``, the merge's fixed
     sources;
+  - ``float_codec.float_type``: ``archive_float_type``, member 0's float
+    header (``dtype=None``);
   - ``sparse.count_check``: ``sparse_float_compress_core``, the same check;
   - ``sparse.merge_refs``: ``sparse_float_compress_core``, the merge's
     sources;
   - ``sparse.merge_strides``: ``sparse_float_compress_core``, the sources'
     strides;
   - ``ans.run_refs``: ``ans_encode_sections``, the runs' source indices;
+  - ``ans.layout``: ``read_layout``, the archives' ANS magics (``native=None``
+    on decompress, under ``float_codec.header`` or ``sparse.header`` for
+    floats);
   - ``table.target``: ``normalize_probs_batched``, 2^prob_bits as float32;
   - ``table.normalize_round``: ``normalize_probs_batched``, each test of
     the loop that takes the excess off (its rounds + 1 a table build).

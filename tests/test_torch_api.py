@@ -13,7 +13,8 @@ from dietgpu_fork_tpu.api import codec as J
 from dietgpu_fork_tpu.core import reference as R
 from dietgpu_fork_tpu.core.constants import FloatType as JFT
 from dietgpu_fork_torch.api import codec as C
-from dietgpu_fork_torch.core.constants import FloatType
+from dietgpu_fork_torch.core.constants import FLOAT_ALIGN_MIN, FloatType
+from dietgpu_fork_torch.models import ans as TA
 from dietgpu_fork_torch.core.interop import (
     bytes_from_numpy,
     bytes_to_numpy,
@@ -134,6 +135,79 @@ def test_default_layout_is_classic_on_the_cpu(rng):
     assert not C.detect_native_layout(True, comp, float_type=FloatType.BFLOAT16)
     comp, _, _ = C.compress_data(False, [t.view(torch.uint8)])
     assert not C.detect_native_layout(False, comp)
+
+
+def _layout_batch(rng, kind, layout):
+    """(compress_as_float, sparse, capacities, archive matrix): two members
+    of one kind of archive (bf16 "dense" v1, "dense_v2" with a v2 member,
+    "sparse" bf16, "raw" ANS), native, classic, native with member 1
+    overwritten by random bytes ("garbage"), or member 0 native and member
+    1 classic ("mixed")."""
+    flt, sparse = kind != "raw", kind == "sparse"
+    sizes = (FLOAT_ALIGN_MIN + 100, 300) if kind == "dense_v2" else (3000, 700)
+    ts = [normal(rng, n, "bfloat16")[1] for n in sizes]
+    for t in ts if sparse else []:
+        t[::2] = 0
+    if not flt:
+        ts = [t.view(torch.uint8) for t in ts]
+    comp = {native: C.compress_data(flt, ts, sparse=sparse, native=native)[0]
+            for native in (True, False)}
+    m = comp[layout != "classic"].clone()
+    if layout == "mixed":
+        m[1] = comp[False][1]
+    if layout == "garbage":
+        m[1] = torch.from_numpy(rng.integers(0, 256, m.shape[1], dtype=np.uint8))
+    return flt, sparse, [t.numel() for t in ts], m
+
+
+# the model entry that reads the layout of each kind of archive
+_LAYOUT_READER = {"dense": "float_decompress_core",
+                  "dense_v2": "float_decompress_core",
+                  "sparse": "sparse_float_decompress_core",
+                  "raw": "ans_decode_padded"}
+
+
+@pytest.mark.parametrize("kind,layout", [
+    ("dense", "native"), ("dense", "classic"), ("dense", "garbage"),
+    ("dense", "mixed"), ("dense_v2", "native"), ("dense_v2", "mixed"),
+    ("sparse", "native"), ("sparse", "classic"), ("sparse", "garbage"),
+    ("sparse", "mixed"), ("raw", "native"), ("raw", "classic"),
+    ("raw", "garbage"), ("raw", "mixed"),
+])
+def test_decompress_takes_the_layout_detect_native_layout_reads(
+        rng, monkeypatch, kind, layout):
+    """decompress_data(native=None) decodes in the layout that
+    detect_native_layout and the JAX package's read, a garbage member not
+    voting; a batch that mixes layouts raises from the model's read,
+    before any decode."""
+    flt, sparse, caps, m = _layout_batch(rng, kind, layout)
+    taken = []
+    decode = TA._ans_decode
+
+    def spy(*args, **kwargs):
+        taken.append(args[5])  # native
+        return decode(*args, **kwargs)
+
+    monkeypatch.setattr(TA, "_ans_decode", spy)
+    dtype = torch.bfloat16 if flt else None
+    jft = JFT.BFLOAT16 if flt else None
+    if layout == "mixed":
+        with pytest.raises(ValueError, match="mixes") as e:
+            C.decompress_data(flt, m, caps, dtype, sparse=sparse)
+        names = [entry.name for entry in e.traceback]
+        assert names[-1] == "read_layout" and _LAYOUT_READER[kind] in names
+        assert taken == []
+        with pytest.raises(ValueError, match="mixes"):
+            C.detect_native_layout(flt, m, sparse)
+        with pytest.raises(ValueError, match="mixes"):
+            J.detect_native_layout(flt, bytes_to_numpy(m), sparse, jft)
+        return
+    want = layout != "classic"
+    _, _, success, _, _ = C.decompress_data(flt, m, caps, dtype, sparse=sparse)
+    assert set(taken) == {want}
+    assert success.tolist() == [True, layout != "garbage"]
+    assert C.detect_native_layout(flt, m, sparse) == want
+    assert J.detect_native_layout(flt, bytes_to_numpy(m), sparse, jft) == want
 
 
 def test_simple_roundtrip_and_shrinkage(rng):

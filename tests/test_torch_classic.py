@@ -81,7 +81,7 @@ def test_encode_blocks_equals_jax(case, pb):
 
 def _staged(case, pb):
     x, sizes, pdf, _, _, states, streams, num_words = _classic_streams(case, pb)
-    staged = F.pad(streams, (0, TA.STAGE_BLOCK_WORDS32 - streams.shape[2]))
+    staged = F.pad(streams, (0, TD.BLOCK_STREAM_CAP - streams.shape[2]))
     blk = np.arange(NB) * 4096
     uncomp = np.clip(sizes[:, None] - blk[None, :], 0, 4096).astype(np.int32)
     lut = from_u32(build_decode_table_batched(pdf, pb))

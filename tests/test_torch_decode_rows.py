@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from dietgpu_fork_tpu.core import reference as R
 from dietgpu_fork_tpu.ops.rans_decode import decode_blocks_rows
 from dietgpu_fork_torch.core.interop import rows_from_numpy, rows_to_numpy
-from dietgpu_fork_torch.models.ans import STAGE_ROW_WORDS32, ans_decode_core
+from dietgpu_fork_torch.models.ans import ans_decode_core
 from dietgpu_fork_torch.ops import rans_decode as TD
 from dietgpu_fork_torch.ops import rans_encode as TE
 from dietgpu_fork_torch.ops.bitops import from_u32, to_u32
@@ -31,7 +31,7 @@ def _decode_inputs(case, pb):
         rows_from_numpy(x.view(np.uint32)), torch.from_numpy(sizes), packed,
         magic, pb,
     )
-    staged = F.pad(streams, (0, STAGE_ROW_WORDS32 - streams.shape[2]))
+    staged = F.pad(streams, (0, TD.ROW_STREAM_CAP - streams.shape[2]))
     blk = np.arange(NB) * 4096
     uncomp = np.clip(sizes[:, None] - blk[None, :], 0, 4096).astype(np.int32)
     lut = from_u32(build_decode_table_batched(pdf, pb))

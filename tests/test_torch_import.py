@@ -2,6 +2,8 @@
 JAX package, its sources never name them, and its own copy of the format
 constants equals the JAX package's."""
 
+import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -166,6 +168,34 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(K, wrapper)(*args)
     assert K._lib is None
+
+
+def test_the_api_reads_no_archive_format():
+    """``api/codec.py`` leaves every archive read to the models: it imports
+    no private name of ``models/`` and holds no ANS magic."""
+    src = (ROOT / "dietgpu_fork_torch" / "api" / "codec.py").read_text()
+    tree = ast.parse(src)
+    imported = [a.name for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom)
+                and "models" in (node.module or "").split(".")
+                for a in node.names]
+    assert imported and not [n for n in imported if n.startswith("_")]
+    magics = {T.ANS_MAGIC, T.ANS_MAGIC_NATIVE}
+    assert not [n.value for n in ast.walk(tree)
+                if isinstance(n, ast.Constant) and n.value in magics]
+    assert not re.search(r"0x(DB0D|D00D)", src, re.IGNORECASE)
+
+
+def test_every_kernel_launch_goes_through_one_helper():
+    """The device guard, the stream, the error check and the launch count
+    are written once, in ``cuda_kernels._launch``: no wrapper can drop one."""
+    src = (ROOT / "dietgpu_fork_torch" / "runtime" / "cuda_kernels.py").read_text()
+    assert len(re.findall(r"torch\.cuda\.device\(", src)) == 1
+    assert len(re.findall(r"(?<!def )\b_stream\(", src)) == 1
+    assert len(re.findall(r"launches\[\w+\] \+= 1", src)) == 1
+    # the library's other entries are no launches
+    assert set(re.findall(r"\.(dgt_\w+)\(", src)) == {
+        "dgt_error_string", "dgt_rans_encode_ctas_per_sm"}
 
 
 def test_every_source_is_built_and_counted():

@@ -76,7 +76,7 @@ def _decode_both(rows, bases, native, pb, secs):
     got = TD.decode_at(words, p.seg_off, p.seg_len, p.comp_w, p.uncomp_w,
                        p.state_off, lut, pb, native, offs[0], offs[1], True)
 
-    SW = TA.STAGE_ROW_WORDS32 if native else TA.STAGE_BLOCK_WORDS32
+    SW = TD.ROW_STREAM_CAP if native else TD.BLOCK_STREAM_CAP
     streams = TD._stage(words, p.seg_off.reshape(-1), p.seg_len.reshape(-1),
                         SW).reshape(B, -1, SW)
     states = TD._stage(words, p.state_off, 32 * NB).reshape(B, NB, 32)

@@ -27,9 +27,8 @@ DENSE_COMPRESS = {
 }
 DENSE_DECOMPRESS = {
     "api:decompress_data", "model:float_codec.float_decompress_core",
-    "stage:api.layout", "stage:float_codec.header", "stage:ans.parse",
-    "stage:ans.decode", "stage:api.outputs", "sync:api.caps", "sync:api.layout",
-    "sync:api.sizes",
+    "stage:float_codec.header", "sync:ans.layout", "stage:ans.parse",
+    "stage:ans.decode", "stage:api.outputs", "sync:api.caps", "sync:api.sizes",
 }
 SPARSE_COMPRESS = (DENSE_COMPRESS - {"model:float_codec.float_compress_padded"}) | {
     "model:sparse.sparse_float_compress_padded", "stage:sparse.bitmap",
@@ -104,6 +103,15 @@ def test_spans_nest_api_model_stage(tmp_path, case):
         in_model = any(_inside(s, m) for m in by["model"])
         # the API's stages run outside the models, every other stage inside
         assert in_model == (not s["name"].startswith("stage:api.")), s["name"]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_the_layout_is_read_under_the_models_header(tmp_path, case):
+    _, spans = _traced(tmp_path, case)
+    header = "stage:sparse.header" if CASES[case][1] else "stage:float_codec.header"
+    reads = [s for s in spans if s["name"] == "sync:ans.layout"]
+    assert len(reads) == 1
+    assert any(_inside(reads[0], s) for s in spans if s["name"] == header)
 
 
 def test_the_table_build_tests_its_loop_once_a_round(tmp_path):
