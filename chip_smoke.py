@@ -184,7 +184,7 @@ from dietgpu_fork_torch.ops.bitmap_pack import (
     pack_bitmap,
     pack_bitmap_plain,
 )
-from dietgpu_fork_torch.ops.bitops import from_u32, to_u32
+from dietgpu_fork_torch.ops.bitops import to_u32
 from dietgpu_fork_torch.ops.checksum import checksum_batched, checksum_packed
 from dietgpu_fork_torch.ops.float_split import (
     join16_at,
@@ -231,7 +231,7 @@ from dietgpu_fork_torch.ops.sparse_stream import (
     word_ranks,
     word_ranks_plain,
 )
-from dietgpu_fork_torch.ops.table import normalize_probs_batched, pack_encode_table
+from dietgpu_fork_torch.ops.table import ans_table, ans_table_plain
 from dietgpu_fork_torch.parallel import collectives as CO
 from dietgpu_fork_torch.parallel import sharded as SH
 from dietgpu_fork_torch.runtime import cuda_kernels as K
@@ -310,6 +310,9 @@ P_16 = (P_SH16, P_G16, P_RS16, P_AR16, P_PP16)
 P_DEC32 = (P_SH32, P_G32, P_GRAW, P_RS32, P_AR32)
 P_WIDE_DEC = P_DEC32 + (P_G64,)
 P_ALL = P_16 + P_WIDE_DEC + (P_TAB,)
+# every path that encodes an ANS archive: all but phase O and the decode
+# formulations, whose archives are made at set-up
+P_ENCODE = (P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S + P_ALL
 # every path that decodes an ANS archive: all but phase O
 P_DECODE = ((P_BF16, P_FP32, P_FP64, P_A, P_B, P_CF, P_CR, P_C32) + P_S
             + (P_F32T, P_F32TC, P_B16T, P_B16TC) + P_ALL)
@@ -444,6 +447,29 @@ PARSE_CELLS = (
     ("sparse_fp64.b3x1m", FP64, 3, 1_000_000, True, 9, True),
 )
 PARSE_MAX_MS = 0.03  # K16's device time a call at every cell's shape
+# K17 edges (``table_edge_batch``): a batch of three, the case's member,
+# an empty member (total 0) and the counts of TABLE_EDGE_BYTES exponential
+# bytes, at prob_bits 9-11. The case's member: "big", counts above 2^24
+# (float32 rounds them and their total); "total_high", a total whose int64
+# value is not its low 32 bits; "diff_rounds", 20 counts against a total
+# thrice their sum (diff > 256); "excess_rounds", three large counts and 20
+# single ones (an excess loop of 6-7 rounds); "ties", exact quotients from
+# a total of 1000 * 2^prob_bits and 3 single counts, so the last round takes
+# the two least values and the lowest id of six equal ones; "single", one
+# symbol; "totals_below", 30 counts against a total 0.9 of their sum;
+# "zero_total", counts with a total of 0; "uniform", every symbol alike
+# (diff 0); "few", five single counts (diff > 0 gives symbols of count 0
+# probability). tests/test_torch_ans_table.py holds the plain version to a
+# scalar model of the contract on the same inputs.
+TABLE_EDGE_CASES = ("big", "total_high", "diff_rounds", "excess_rounds", "ties",
+                    "single", "totals_below", "zero_total", "uniform", "few")
+TABLE_EDGE_PROB_BITS = (9, 10, 11)
+TABLE_EDGE_BYTES = 10_007
+# K17 at the benchmark cells' shapes: (cell, members of the table build,
+# prob_bits); fp64 encodes its two planes in one call
+TABLE_CELLS = tuple((cell, count * (2 if ft == FP64 else 1), pb)
+                    for cell, ft, count, _, _, pb, _ in PARSE_CELLS)
+TABLE_MAX_MS = 0.03  # K17's device time a call at every cell's shape
 
 # (wrapper in runtime.cuda_kernels, launch counter, plain version, source,
 # file:line of each TPU kernel it replaces, within the JAX package, and the
@@ -547,6 +573,12 @@ KERNELS = [
     ("ans_parse", "ans_parse", ans_parse_plain,
      "dietgpu_fork_torch/csrc/ans_parse.cu",
      ("models/ans.py:331", "ops/table.py:218"), P_DECODE),
+    # K17: the encode table build (normalisation, cdf, magic, packing), the
+    # torch glue the JAX package leaves to XLA before its encode kernel,
+    # not a Pallas kernel
+    ("ans_table", "ans_table", ans_table_plain,
+     "dietgpu_fork_torch/csrc/ans_table.cu",
+     ("ops/table.py:26", "ops/table.py:110"), P_ENCODE),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 WARP = 32  # rANS states a block
@@ -1614,11 +1646,10 @@ def encode_edge_inputs(case: str, prob_bits: int, dev):
     packed, magic), the tables normalised from each member's bytes."""
     x, sizes = encode_edge_bytes(case)
     hist = np.stack([np.bincount(r[:s], minlength=256) for r, s in zip(x, sizes)])
-    pdf, cdf, magic, shift = normalize_probs_batched(
+    packed, magic, _ = ans_table_plain(
         torch.from_numpy(hist), torch.from_numpy(sizes.astype(np.int64)), prob_bits)
-    packed = from_u32(pack_encode_table(pdf, cdf, shift))
     return (rows_from_numpy(x.view(np.uint32), dev),
-            torch.from_numpy(sizes).to(dev), packed.to(dev), from_u32(magic).to(dev))
+            torch.from_numpy(sizes).to(dev), packed.to(dev), magic.to(dev))
 
 
 def phase_encode_edges(dev):
@@ -2309,6 +2340,121 @@ def time_parse(dev, card: str) -> None:
         del calls, comp
 
 
+def table_edge_batch(case: str, prob_bits: int):
+    """One of K17's edge cases (TABLE_EDGE_CASES) at prob_bits: (hist
+    int64[3, 256], totals int64[3]), the case's member, an empty member and
+    the counts of TABLE_EDGE_BYTES exponential bytes."""
+    T = 1 << prob_bits
+    rng = np.random.default_rng(100 * prob_bits + TABLE_EDGE_CASES.index(case))
+    h = np.zeros(256, np.int64)
+    total = None  # None: the counts' sum
+    if case == "big":
+        h[:200] = rng.integers((1 << 24) + 1, (1 << 24) + (1 << 20), 200) | 1
+    elif case == "total_high":
+        h[:] = rng.integers(0, 5000, 256)
+        total = int(h.sum()) + (1 << 32)
+    elif case == "diff_rounds":
+        h[rng.choice(256, 20, replace=False)] = rng.integers(1000, 5000, 20)
+        total = 3 * int(h.sum())
+    elif case == "excess_rounds":
+        h[rng.choice(256, 23, replace=False)] = [10**6] * 3 + [1] * 20
+    elif case == "ties":
+        # quotients 60u (six), 40u (two), 72u and three bumped to 1, of 512u
+        u = T // 512
+        vals = [60 * u] * 6 + [40 * u] * 2 + [72 * u]
+        ids = rng.choice(256, len(vals) + 3, replace=False)
+        h[ids] = [1000 * v for v in vals] + [1] * 3
+        total = 1000 * T
+    elif case == "single":
+        h[rng.integers(256)] = 12345
+    elif case == "totals_below":
+        h[rng.choice(256, 30, replace=False)] = rng.integers(1000, 5000, 30)
+        total = int(0.9 * h.sum())
+    elif case == "zero_total":
+        h[:] = rng.integers(0, 5000, 256)
+        total = 0
+    elif case == "uniform":
+        h[:] = 7
+    elif case == "few":
+        h[rng.choice(np.arange(10, 256), 5, replace=False)] = 1
+    else:
+        raise ValueError(case)
+    natural = np.bincount(exponential_bytes(prob_bits, TABLE_EDGE_BYTES, 3.0),
+                          minlength=256)
+    hist = np.stack([h, np.zeros(256, np.int64), natural]).astype(np.int64)
+    totals = np.array([int(h.sum()) if total is None else total, 0,
+                       TABLE_EDGE_BYTES], np.int64)
+    return hist, totals
+
+
+def phase_table_edges(dev):
+    """K17 against its plain version, pdf, packed table and magic bit for
+    bit, on table_edge_batch: each case at prob_bits 9-11, through the
+    dispatch (int64 counts, as the API hands them in: one launch a case),
+    against the plain version on the card and on the CPU; then from one
+    row expanded over the batch, read in place (the shared table's form)."""
+    for case in TABLE_EDGE_CASES:
+        for pb in TABLE_EDGE_PROB_BITS:
+            hist, totals = table_edge_batch(case, pb)
+            h, t = torch.from_numpy(hist), torch.from_numpy(totals)
+            what = f"K17 edge {case} prob_bits {pb}"
+            torch.cuda.synchronize()
+            K.reset_launches()
+            got = ans_table(h.to(dev), t.to(dev), pb)
+            torch.cuda.synchronize()
+            check(K.launches["ans_table"] == 1 and sum(K.launches.values()) == 1,
+                  f"{what}: launches {K.launches}")
+            check(max_abs_err(got, ans_table_plain(h.to(dev), t.to(dev), pb)) == 0,
+                  f"{what}: K17 differs from the plain version on the card")
+            check(max_abs_err(tuple(x.cpu() for x in got),
+                              ans_table_plain(h, t, pb)) == 0,
+                  f"{what}: K17 differs from the plain version on the CPU")
+            row = h[2:].to(torch.int32).to(dev).expand(3, 256)
+            tot = t[2:].to(dev).expand(3).contiguous()
+            check(max_abs_err(K.ans_table(row, tot, pb),
+                              ans_table_plain(row.contiguous(), tot, pb)) == 0,
+                  f"{what}: K17 on an expanded row differs")
+    print(f"K17 edges: {len(TABLE_EDGE_CASES)} cases x prob_bits "
+          f"{TABLE_EDGE_PROB_BITS}: equal to the plain version on the card and "
+          "on the CPU, one launch each; an expanded row read in place")
+
+
+def table_cell_inputs(B: int, prob_bits: int, seed: int, dev):
+    """K17's arguments at a cell's shape: B skewed random histograms (every
+    other row with about 80% of its symbols absent, so bumps to 1 start the
+    excess loop) and their sums as totals, made on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    h = (torch.rand((B, 256), generator=g, device=dev) ** 6 * 1e6).to(torch.int32)
+    sparse_rows = (torch.arange(B, device=dev) % 2 == 1)[:, None]
+    absent = torch.rand((B, 256), generator=g, device=dev) < 0.8
+    h = torch.where(sparse_rows & absent, 0, h)
+    return h, h.sum(dim=1, dtype=torch.int64), prob_bits
+
+
+def time_table(dev, card: str) -> None:
+    """K17 at each of TABLE_CELLS' shapes on table_cell_inputs, held to the
+    plain version bit for bit, then timed alone: its device time a call
+    from a profiler trace of 20 calls (checked against TABLE_MAX_MS), by
+    CUDA events, beside its bound and the plain version's time."""
+    for cell, B, pb in TABLE_CELLS:
+        a = table_cell_inputs(B, pb, 20, dev)
+        out = K.ans_table(*a)
+        torch.cuda.synchronize()
+        check(max_abs_err(out, ans_table_plain(*a)) == 0,
+              f"K17 at {cell}: differs from the plain version")
+        dev_ms = _device_us(lambda: K.ans_table(*a), "ans_table_kernel", 20) / 1e3
+        ev_ms = cuda_ms(lambda: [K.ans_table(*a) for _ in range(20)], 2, 5) / 20
+        plain_ms = cuda_ms(lambda: ans_table_plain(*a), 1, 3)
+        b_ms = bound_ms("ans_table", a, out)
+        print(f"K17 at {cell}: B {B}, prob_bits {pb}; device {dev_ms:.4f} ms a "
+              f"call (limit {TABLE_MAX_MS}), events {ev_ms:.4f} ms, bound "
+              f"{b_ms:.6f} ms ({100 * b_ms / dev_ms:.2f}% of it), plain "
+              f"{plain_ms:.3f} ms ({card})")
+        check(dev_ms <= TABLE_MAX_MS,
+              f"K17 at {cell}: {dev_ms:.4f} ms a call, over {TABLE_MAX_MS}")
+
+
 def phase_hist_edges(dev):
     """K8 against its plain version, bit for bit, on ``hist_edge_inputs``,
     launched once a case; a one-valued row's histogram holds its size in
@@ -2606,6 +2752,9 @@ def run() -> int:
 
         (arc, comp_bytes, res), counts = counted(mp.name, run, launches, report)
         check(mp.round_trip_ok(res), f"{mp.name} main path round trip")
+        if not getattr(mp, "decode_only", False):
+            check(counts["ans_table"] == 1,
+                  f"{mp.name}: {counts['ans_table']} K17 launches a compress")
         if mp.name in K3_MAX_LAUNCHES:
             k3 = counts["runs_merge"]
             if getattr(mp, "decode_only", False):
@@ -2714,6 +2863,7 @@ def run() -> int:
     phase_hist_edges(dev)
     phase_checksum_edges(dev)
     phase_parse_edges(dev)
+    phase_table_edges(dev)
     ragged_batch(BF16, 128, 2, dev)
     ragged_batch(FP32, 64, 200, dev)
     ragged_batch(FP64, 64, 300, dev)
@@ -2751,6 +2901,7 @@ def run() -> int:
 
     time_checksum_form(dev, card)
     time_parse(dev, card)
+    time_table(dev, card)
 
     # P: each function timed on its own; the wire is a collective's words
     # moved by this rank, the archives' bytes for the sharded codecs

@@ -48,11 +48,7 @@ from ..ops.rans_encode import (
     encode_rows,
     encode_rows_plain,
 )
-from ..ops.table import (
-    build_decode_table_batched,
-    normalize_probs_batched,
-    pack_encode_table,
-)
+from ..ops.table import ans_table, ans_table_plain, build_decode_table_batched
 from ..runtime import cuda_kernels as K
 from ..utils.profiling import span
 
@@ -108,7 +104,8 @@ def ans_encode_sections(
     caller-supplied int32[B, 256] byte histograms of the first sizes[b]
     bytes, which skip the statistics pass (GpuANSCodec.h:82-84); they are
     normalised against sizes, or against hist_totals where given. Without
-    hist, one K8 launch counts the bytes and folds their checksum.
+    hist, one K8 launch counts the bytes and folds their checksum. One K17
+    launch builds every member's encode table (``ops.table.ans_table``).
     use_checksum writes the XOR of the input bytes into header word 5.
     native picks the row-stream layout, else the classic one. plain=True
     runs every kernel's plain version wherever the tensors lie.
@@ -134,15 +131,15 @@ def ans_encode_sections(
                     else checksum_rows(rows, sizes64))
     with span("stage:ans.table"):
         totals = sizes64 if hist_totals is None else hist_totals.to(torch.int64)
-        pdf, cdf, magic, shift = normalize_probs_batched(hist, totals, prob_bits)
-        packed = pack_encode_table(pdf, cdf, shift)
+        packed, magic, pdf = (ans_table_plain if plain else ans_table)(
+            hist, totals, prob_bits)
     with span("stage:ans.encode"):
         if native:
             encode = encode_rows_plain if plain else encode_rows
         else:
             encode = encode_blocks_plain if plain else encode_blocks
         states, streams, num_words = encode(
-            xp, sizes.to(torch.int32), from_u32(packed), from_u32(magic), prob_bits
+            xp, sizes.to(torch.int32), packed, magic, prob_bits
         )
 
     with span("stage:ans.runs"):

@@ -6,6 +6,10 @@ reproduces the reference's quantisation exactly, including its float32
 first pass with a truncating cast and the symbol-id (not rank) +1 quirk
 (GpuANSStatistics.cuh:178-367), because any "cleaner" rewrite changes the
 archive bytes. All u32 values are int64 carriers (see ``bitops``).
+
+``ans_table`` builds the encoder's tables: a CUDA tensor takes K17
+(``csrc/ans_table.cu``), one launch with no read to the host; a CPU tensor
+takes ``ans_table_plain``, the normalisation and the packing below.
 """
 
 from __future__ import annotations
@@ -14,9 +18,11 @@ from typing import Tuple
 
 import torch
 
+from ..core.config import use_kernels
 from ..core.constants import NUM_SYMBOLS
+from ..runtime import cuda_kernels as K
 from ..utils.profiling import span
-from .bitops import M32, clz32, udiv_u43_by_u32
+from .bitops import M32, clz32, from_u32, udiv_u43_by_u32
 
 
 def normalize_probs_batched(
@@ -90,6 +96,30 @@ def pack_encode_table(pdf, cdf, shift):
     """pdf[12 bits] | cdf[11 bits] << 12 | shift << 23, one u32 per symbol.
     pdf needs 12 bits: a single-symbol table has pdf = 2^prob_bits."""
     return (pdf | (cdf << 12) | (shift << 23)) & M32
+
+
+def ans_table_plain(
+    hist: torch.Tensor, totals: torch.Tensor, prob_bits: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K17's contract: ``normalize_probs_batched``, then
+    ``pack_encode_table``. hist: [B, 256] counts; totals: [B]. Returns the
+    encoder's (packed, magic) as int32[B, 256] and pdf int64[B, 256]."""
+    pdf, cdf, magic, shift = normalize_probs_batched(hist, totals, prob_bits)
+    return from_u32(pack_encode_table(pdf, cdf, shift)), from_u32(magic), pdf
+
+
+def ans_table(
+    hist: torch.Tensor, totals: torch.Tensor, prob_bits: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ans_table_plain``'s result: one launch of K17 for a CUDA tensor,
+    the plain version for a CPU tensor. hist and totals of any integer
+    type, each value read as its low 32 bits."""
+    if not use_kernels(hist):
+        return ans_table_plain(hist, totals, prob_bits)
+    if hist.dtype != torch.int32 or hist.stride(-1) != 1:
+        hist = hist.to(torch.int32).contiguous()  # keeps the low 32 bits
+    return K.ans_table(hist, totals.to(device=hist.device, dtype=torch.int64)
+                       .contiguous(), prob_bits)
 
 
 def build_decode_table_batched(pdf: torch.Tensor, prob_bits: int) -> torch.Tensor:

@@ -59,6 +59,7 @@ SOURCES = (
     "lookup.cu",
     "word_ranks.cu",
     "ans_parse.cu",
+    "ans_table.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -92,6 +93,7 @@ launches: Dict[str, int] = {
     "rowwise_lookup": 0,
     "word_ranks": 0,
     "ans_parse": 0,
+    "ans_table": 0,
 }
 
 # What the last build did: seconds spent in nvcc (0.0 when the library was
@@ -193,6 +195,7 @@ def library() -> ctypes.CDLL:
         "dgt_word_ranks": [P, L, L, P, P, L, P, P],
         "dgt_ans_parse": [P, L, L, P, P, L, P, I, I, L,
                           P, P, P, P, P, P, P, P, P, P, P],
+        "dgt_ans_table": [P, L, L, P, I, P, P, P],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -715,3 +718,34 @@ def ans_parse(comp32: torch.Tensor, base: torch.Tensor, out_capacity: int,
             out_capacity, None if expect_n is None else expect_n.data_ptr(),
             prob_bits, int(native), NB, *[t.data_ptr() for t in out])
     return out
+
+
+@spanned("kernel:ans_table")
+def ans_table(hist: torch.Tensor, totals: torch.Tensor, prob_bits: int):
+    """K17 launch; arguments as ``ops.table.ans_table_plain``, with hist
+    int32[B, 256] (each row's counts contiguous, its rows at any stride: an
+    expanded row is read in place) and totals contiguous int64[B]. Returns
+    (packed int32[B, 256], magic int32[B, 256], pdf int64[B, 256])."""
+    _cuda_only(hist, totals)
+    if (hist.dtype != torch.int32 or hist.dim() != 2
+            or hist.shape[1] != NUM_SYMBOLS):
+        raise TypeError(f"hist must be torch.int32 of shape [B, {NUM_SYMBOLS}]")
+    if hist.stride(1) != 1:
+        raise ValueError("each row of hist must be contiguous")
+    B = hist.shape[0]
+    _batch_ok(B)
+    if (totals.dtype != torch.int64 or tuple(totals.shape) != (B,)
+            or not totals.is_contiguous()):
+        raise TypeError(f"totals must be contiguous int64 of shape ({B},)")
+    if totals.device != hist.device:
+        raise ValueError("hist and totals must lie on one device")
+    if prob_bits not in VALID_PROB_BITS:
+        raise ValueError(f"prob_bits must be one of {VALID_PROB_BITS}")
+    dev = hist.device
+    packed = torch.empty((B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    magic = torch.empty((B, NUM_SYMBOLS), dtype=torch.int32, device=dev)
+    pdf = torch.empty((B, NUM_SYMBOLS), dtype=torch.int64, device=dev)
+    _launch("ans_table", "dgt_ans_table", hist, hist.data_ptr(), B,
+            hist.stride(0), totals.data_ptr(), prob_bits, packed.data_ptr(),
+            magic.data_ptr(), pdf.data_ptr())
+    return packed, magic, pdf

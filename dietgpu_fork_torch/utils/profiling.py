@@ -76,6 +76,8 @@ name in a trace. Names are ``<family>:<where>``:
   - ``table.target``: ``normalize_probs_batched``, 2^prob_bits as float32;
   - ``table.normalize_round``: ``normalize_probs_batched``, each test of
     the loop that takes the excess off (its rounds + 1 a table build).
+    Both on the plain path only (CPU tensors, ``plain=True``): on a CUDA
+    tensor K17 builds the table with no read to the host.
 """
 
 from __future__ import annotations

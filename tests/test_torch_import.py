@@ -127,7 +127,8 @@ def test_size_functions_equal_jax(size):
      "encode_blocks", "decode_blocks", "decode_join16_blocks", "pack_bitmap",
      "compact_by_bitmap", "expand_by_bitmap", "decode_join32",
      "decode_join32_blocks", "join16_rows", "split16", "split_wide",
-     "chunked_lookup", "rowwise_lookup", "word_ranks", "ans_parse"],
+     "chunked_lookup", "rowwise_lookup", "word_ranks", "ans_parse",
+     "ans_table"],
 )
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper never runs, builds or falls back on a CPU tensor."""
@@ -164,6 +165,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "rowwise_lookup": (t, t[:, :128]),
         "word_ranks": (t[:, :32], i64),
         "ans_parse": (t, i64, 4096, None, 10, True, None),
+        "ans_table": (t[:, :256], i64, 10),
     }[wrapper]
     with pytest.raises(ValueError, match="CUDA tensors only"):
         getattr(K, wrapper)(*args)
@@ -200,7 +202,8 @@ def test_every_kernel_launch_goes_through_one_helper():
 
 def test_every_source_is_built_and_counted():
     """Each kernel source is in the build (K8, the sparse K9-K11, the
-    lookups K14, the rank scan K15 and the parse K16 among them), and each layout of K2,
+    lookups K14, the rank scan K15, the parse K16 and the table build K17
+    among them), and each layout of K2,
     K4, K6 and K12, and each split or join mode, has its own launch
     counter."""
     from dietgpu_fork_torch.runtime import cuda_kernels as K
@@ -209,12 +212,13 @@ def test_every_source_is_built_and_counted():
     assert sorted(K.SOURCES) == on_disk
     assert {"byte_hist.cu", "bitmap_pack.cu", "sparse_compact.cu",
             "sparse_expand.cu", "lookup.cu", "word_ranks.cu",
-            "ans_parse.cu"} <= set(K.SOURCES)
+            "ans_parse.cu", "ans_table.cu"} <= set(K.SOURCES)
     assert {"byte_hist", "rans_encode_blocks", "rans_decode_blocks",
             "rans_decode_join16_blocks", "bitmap_pack", "sparse_compact",
             "sparse_expand", "rans_decode_join32", "rans_decode_join32_blocks",
             "join16", "split16", "split_wide", "chunked_lookup",
-            "rowwise_lookup", "word_ranks", "ans_parse"} <= set(K.launches)
+            "rowwise_lookup", "word_ranks", "ans_parse",
+            "ans_table"} <= set(K.launches)
     K.launches["byte_hist"] = 3
     K.reset_launches()
     assert not any(K.launches.values())
