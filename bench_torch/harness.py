@@ -35,6 +35,13 @@ from . import reference, stats, traffic, tracing
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 MIB = 1 << 20
+# modules that no process of a run may hold, compared by top-level name
+UNWANTED = ("jax", "jaxlib", "flax", "dietgpu_fork_tpu")
+
+
+def unwanted_modules() -> List[str]:
+    """The modules of ``UNWANTED`` that this process holds."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in UNWANTED)
 
 
 class Codec:

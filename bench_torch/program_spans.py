@@ -12,9 +12,12 @@ public attributes (``host``, ``spans``, ``runtime``, ``calls``,
 The benchmark's own spans (``tracing.instrument``) wrap the model entries
 and the kernel wrappers under the same names as the program's spans inside
 them: a span counts once where a span of its name encloses it, and times
-are read from unions of intervals. A slice reads None everywhere where the
-program recorded no ``api:`` span, or where no device op ran (a run on the
-CPU, where no statement waits on a device).
+are read from unions of intervals. The program's work is what lies inside
+its ``api:`` spans; in a slice whose calls enter no ``api:`` span (a
+collective's call, which calls the models itself), what lies inside the
+calls. A slice reads None everywhere where the program recorded none of
+its own spans, or where no device op ran (a run on the CPU, where no
+statement waits on a device).
 """
 
 from __future__ import annotations
@@ -24,25 +27,40 @@ import collections
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from . import stats
-from .tracing import DIRECTIONS, _end, _launches
+from .tracing import CALLS, _end, _launches
 
 FAMILIES = ("api:", "model:", "kernel:")
+# the span families that only the program records (the benchmark's own
+# spans wrap model entries and kernel wrappers under the program's names)
+OWN = ("api:", "stage:", "sync:")
 
 
 def readable(t) -> bool:
     """Whether the slice holds the program's own spans and device work."""
-    return bool(t.device) and any(s["name"].startswith("api:") for s in t.spans)
+    return bool(t.device) and any(s["name"].startswith(OWN) for s in t.spans)
+
+
+def _has_api(t) -> bool:
+    return any(s["name"].startswith("api:") for s in t.spans)
+
+
+def _in_program(t, e, has_api: bool) -> bool:
+    """Whether e lies inside the program's work: inside an ``api:`` span,
+    or, in a slice without one, inside a call."""
+    if has_api:
+        return _innermost(t.ancestors[id(e)], ("api:",)) is not None
+    return _direction(t, e) is not None
 
 
 def _direction(t, e) -> Optional[str]:
-    for d in DIRECTIONS:
+    for d in CALLS:
         if "bench." + d in t.ancestors[id(e)]:
             return d
     return None
 
 
 def _directions(direction: str) -> Tuple[str, ...]:
-    return DIRECTIONS if direction == "roundtrip" else (direction,)
+    return CALLS if direction == "roundtrip" else (direction,)
 
 
 def _innermost(names: Sequence[str], prefixes) -> Optional[str]:
@@ -52,7 +70,7 @@ def _innermost(names: Sequence[str], prefixes) -> Optional[str]:
     return None
 
 
-def spans_of(t, prefix: str, directions: Sequence[str] = DIRECTIONS) -> List[dict]:
+def spans_of(t, prefix: str, directions: Sequence[str] = CALLS) -> List[dict]:
     """The spans whose name starts with prefix, inside a call of the given
     directions, leaving out each one that a span of its own name encloses."""
     return [s for s in t.spans if s["name"].startswith(prefix)
@@ -60,11 +78,12 @@ def spans_of(t, prefix: str, directions: Sequence[str] = DIRECTIONS) -> List[dic
 
 
 def host_syncs_per_roundtrip(t) -> Optional[float]:
-    """``sync:`` spans inside the API's entries, per round trip."""
+    """``sync:`` spans inside the program's work (the API's entries, or a
+    collective's calls), per round trip."""
     if not readable(t) or not t.roundtrips:
         return None
-    n = sum(1 for s in spans_of(t, "sync:")
-            if _innermost(t.ancestors[id(s)], ("api:",)) is not None)
+    has_api = _has_api(t)
+    n = sum(1 for s in spans_of(t, "sync:") if _in_program(t, s, has_api))
     return n / t.roundtrips
 
 
@@ -92,7 +111,7 @@ def model_host_ms(t, direction: str) -> Optional[float]:
     """Host ms a call (a round trip: "roundtrip") spends inside ``model:``
     spans, outside ``kernel:`` and ``sync:`` spans."""
     dirs = _directions(direction)
-    n = len(t.calls[dirs[0]])
+    n = t.roundtrips if direction == "roundtrip" else len(t.calls[direction])
     if not readable(t) or not n:
         return None
     model = stats.union((s["ts"], _end(s)) for s in spans_of(t, "model:", dirs))
@@ -150,7 +169,7 @@ def by_stage(t) -> Dict[str, Dict[str, float]]:
         mid = (a + b) / 2
         labels.append(_label([s["name"] for s in prog if s["ts"] <= mid < _end(s)]))
     ivs = [(op["ts"], _end(op)) for op, _ in t.device]
-    for d in DIRECTIONS:
+    for d in CALLS:
         for win in t.calls[d]:
             for a, b in stats.gaps(ivs, win):
                 cuts = [a] + [p for p in points if a < p < b] + [b]

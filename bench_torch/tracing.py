@@ -6,7 +6,8 @@ Spans (``torch.profiler.record_function``, so device work can be traced
 back to them through the launching runtime call):
 
 * ``bench.compress`` / ``bench.decompress``: a timed call and the
-  synchronise after it (the harness);
+  synchronise after it (the harness); ``bench.allgather``: a timed call of
+  a collective cell and its synchronise (``ranks.py``);
 * ``api.compress_data`` / ``api.decompress_data``: the API entry;
 * ``model:<module>.<function>``: the model entries, wrapped under the
   names their callers look them up by (``MODEL_ENTRIES``);
@@ -21,7 +22,7 @@ import collections
 import functools
 import importlib
 import json
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from torch.profiler import record_function
 
@@ -44,6 +45,9 @@ MODEL_ENTRIES = (
 )
 KERNELS_MODULE = "dietgpu_fork_torch.runtime.cuda_kernels"
 DIRECTIONS = ("compress", "decompress")
+# every timed call's span name, ``bench.<call>``: the directions and the
+# collectives' calls
+CALLS = DIRECTIONS + ("allgather",)
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 
@@ -141,7 +145,7 @@ class TracedSlice:
     def __init__(self, events: Sequence[dict], kernel_bytes=None, kernel_calls=None):
         xs = [e for e in events if e.get("ph") == "X" and "ts" in e]
         calls = [e for e in xs if e.get("cat") == "user_annotation"
-                 and e.get("name") in ("bench.compress", "bench.decompress")]
+                 and e.get("name") in {"bench." + c for c in CALLS}]
         self.tid = calls[0]["tid"] if calls else None
         host = sorted((e for e in xs if e.get("tid") == self.tid
                        and e.get("cat") not in DEVICE_CATS), key=lambda e: (e["ts"], -e.get("dur", 0)))
@@ -149,8 +153,9 @@ class TracedSlice:
         self.runtime = [e for e in host if e.get("cat") in RUNTIME_CATS]
         self.host = host
         self.calls = {d: [(e["ts"], _end(e)) for e in calls if e["name"] == "bench." + d]
-                      for d in DIRECTIONS}
-        self.roundtrips = len(self.calls["compress"])
+                      for d in CALLS}
+        # a round trip: a compress and its decompress, or a collective's call
+        self.roundtrips = len(self.calls["compress"]) + len(self.calls["allgather"])
         self.kernel_bytes = kernel_bytes or {d: {} for d in DIRECTIONS}
         self.kernel_calls = kernel_calls or {d: {} for d in DIRECTIONS}
         # each host event's enclosing spans, outermost first
@@ -181,7 +186,7 @@ class TracedSlice:
         return self.ancestors[id(e)] + ((e["name"],) if e.get("cat") == "user_annotation" else ())
 
     def direction_of(self, e) -> Optional[str]:
-        for d in DIRECTIONS:
+        for d in CALLS:
             if "bench." + d in self._stack(e):
                 return d
         return None
@@ -234,6 +239,16 @@ class TracedSlice:
                 seen = True
         return total / n / 1e3 if seen else None
 
+    def device_ms_of(self, call: str, pick: Callable[[str], bool]) -> Optional[float]:
+        """Device ms a call of ``call`` (a name of ``CALLS``) of the ops
+        launched inside it whose name ``pick`` takes."""
+        n = len(self.calls[call])
+        ops = [op for op, launch in self.device
+               if self.direction_of(launch) == call and pick(op["name"])]
+        if not n or not ops:
+            return None
+        return sum(op.get("dur", 0) for op in ops) / n / 1e3
+
     def launches_per_roundtrip(self) -> Optional[float]:
         """Runtime calls that put work on the device (kernel launches,
         copies, fills), per round trip."""
@@ -284,9 +299,8 @@ class TracedSlice:
 
     def idle_share(self, direction: str) -> Optional[float]:
         """Percent of the calls' time in which no device op ran;
-        "roundtrip": of both calls' time."""
-        windows = [w for d in DIRECTIONS if direction in (d, "roundtrip")
-                   for w in self.calls[d]]
+        "roundtrip": of every call's time."""
+        windows = [w for d in CALLS if direction in (d, "roundtrip") for w in self.calls[d]]
         if not windows or not self.device:
             return None
         ivs = self._device_intervals()
@@ -294,7 +308,7 @@ class TracedSlice:
         return 100 * (1 - busy / sum(b - a for a, b in windows))
 
     def window(self) -> Optional[Tuple[float, float]]:
-        ws = self.calls["compress"] + self.calls["decompress"]
+        ws = [w for d in CALLS for w in self.calls[d]]
         if not ws:
             return None
         return min(a for a, _ in ws), max(b for _, b in ws)
@@ -315,7 +329,7 @@ class TracedSlice:
         times, names = self._timeline()
         idle: Dict[str, float] = collections.Counter()
         ivs = self._device_intervals()
-        for d in DIRECTIONS:
+        for d in CALLS:
             for win in self.calls[d]:
                 for a, b in stats.gaps(ivs, win):
                     i = bisect.bisect_right(times, (a + b) / 2) - 1
