@@ -1261,8 +1261,7 @@ class CollectivePath:
               f"{self.name}: the output equals the input bit for bit")
         w, n, w32 = CO._to_u32(self.x)
         cw = CO._chunk_words(w32, None)
-        _, meta = CO._encode_payload(w, n, CO._ft_of(self.x.dtype), PROB_BITS,
-                                     CO._pad_words(w32, cw))
+        _, meta = CO._encode_payload(w, n, CO._ft_of(self.x.dtype), PROB_BITS)
         check(int(meta[0]) == self.flag,
               f"{self.name}: the payload rides with flag {int(meta[0])}")
         want = self.hops * -(-int(meta[1]) // cw) * cw

@@ -14,20 +14,36 @@ Wire protocol, as in the JAX package:
 
 1. SIZE EXCHANGE: each rank compresses its piece (classic 0xD00D layout,
    as the JAX package's default) and all-gathers a (2,) header [flag,
-   payload_words]. The payload is the archive when it is no larger than the
-   raw piece (flag 1), else the raw words (flag 2), so incompressible data
-   costs raw plus chunk rounding and transport never fails for capacity.
-2. TRANSFER: the headers are read on the host once (the transport's one
-   device-to-host read), and ONE collective moves ``nchunks * chunk_w``
-   words, nchunks = ceil(max payload / chunk_w). The JAX package moves the
-   same words in a loop of chunk_w-word collectives, which XLA's static
-   shapes need; the ``wire`` statistic, the words a rank moved, is the same
-   number in both.
+   payload_words] (a permute gathers the payload_words alone, and the
+   header rides with the payload). The payload is the archive when it is
+   no larger than the raw piece (flag 1), else the raw words (flag 2), so
+   incompressible data costs raw plus chunk rounding and transport never
+   fails for capacity.
+2. TRANSFER: the gathered headers are read on the host once, with the
+   rank's own flag (the transport's one device-to-host read), and ONE
+   collective moves ``nchunks * chunk_w`` words, nchunks = ceil(max
+   payload / chunk_w): each rank sends its archive words or its raw words,
+   as its flag says. The JAX package selects between the two, padded, on
+   the device, and moves the same words in a loop of chunk_w-word
+   collectives, which XLA's static shapes need; the ``wire`` statistic,
+   the words a rank moved, is the same number in both.
+3. DECODE: every received row goes through one batched decode, as in the
+   JAX package; the decode leaves a failed row zero, and a raw row is
+   taken as it came. In an all-gather (``compressed_all_gather`` and the
+   gather of ``compressed_all_reduce``) the host has read every row's flag
+   with the sizes, so the raw rows are copied in by their indices; here
+   the port departs from the JAX package, whose two selects over all the
+   rows take raw rows and zero failed ones; the outputs and ``ok`` flags
+   are the same. A permute's received row (``compressed_ppermute`` and the
+   hops of ``compressed_reduce_scatter``), whose flag the host does not
+   read, is selected on the device as in the JAX package. A rank that no
+   pair of a permutation sends to receives a zero header and zero words:
+   it gets zeros and ``ok=False``, as under ``jax.lax.ppermute``.
 
-Every received row goes through the decode, as in the JAX package: a raw
-row (flag 2) fails it and is taken as it came. A rank that no pair of a
-permutation sends to receives a zero header and zero words: it gets zeros
-and ``ok=False``, as under ``jax.lax.ppermute``.
+Spans (``utils/profiling.span``): ``parallel:<function>`` around each
+public collective; inside, ``stage:parallel.encode``, ``.sizes`` (the
+header exchange and its read, ``sync:parallel.sizes``), ``.transfer``,
+``.decode`` and ``.output``.
 
 Every function takes ``plain=True`` to run every kernel's plain PyTorch
 version wherever the tensors lie, and ``return_stats=True`` to return the
@@ -44,6 +60,7 @@ import torch.nn.functional as F
 
 from ..core.constants import DEFAULT_PROB_BITS, FLOAT_WORD_SIZE, FloatType
 from ..models.float_codec import float_compress_core, float_decompress_core
+from ..utils.profiling import span, spanned
 
 _FLAG_COMP = 1  # payload words are a float archive
 _FLAG_RAW = 2  # payload words are the raw piece (the archive was larger)
@@ -64,10 +81,6 @@ def _chunk_words(payload_words: int, override: Optional[int]) -> int:
     else:
         cw = min(8192, max(128, payload_words // 64))
     return -(-cw // 128) * 128
-
-
-def _pad_words(payload_words: int, chunk_w: int) -> int:
-    return max(chunk_w, -(-payload_words // chunk_w) * chunk_w)
 
 
 def _ft_of(dtype: torch.dtype) -> FloatType:
@@ -109,79 +122,120 @@ def _rows_from_u32(rows: torch.Tensor, dtype: torch.dtype, n: int) -> torch.Tens
 
 
 def _encode_payload(x32: torch.Tensor, n: int, ft: FloatType, prob_bits: int,
-                    pad_w: int, plain: bool = False):
-    """Compress one piece; return (int32[pad_w] payload, int32[2] meta).
+                    plain: bool = False):
+    """Compress one piece; return (int32[CW] archive words, zero past its
+    size; int32[2] meta on the piece's device).
 
     meta = [flag, payload_words]: flag 1 = archive, flag 2 = raw words (the
-    archive did not beat raw, so the raw piece rides the wire instead)."""
+    archive did not beat raw, so the raw piece rides the wire instead).
+    Which of the two the rank sends (``_payload``) is chosen once the host
+    has read the flag with the gathered sizes."""
     raw_w = x32.shape[0]
-    dev = x32.device
     comp32, comp_bytes = float_compress_core(
-        x32[None, :], torch.tensor([n], dtype=torch.int32, device=dev), ft,
-        prob_bits, native=False, plain=plain,
+        x32[None, :], torch.full((1,), n, dtype=torch.int32, device=x32.device),
+        ft, prob_bits, native=False, plain=plain,
     )
-    comp32 = comp32[0]
     comp_w = (comp_bytes[0] + 3) >> 2
     use_comp = comp_w <= raw_w
-
-    if comp32.shape[0] >= pad_w:
-        comp_pad = comp32[:pad_w]
-    else:
-        comp_pad = F.pad(comp32, (0, pad_w - comp32.shape[0]))
-    raw_pad = F.pad(x32, (0, pad_w - raw_w))
-    payload = torch.where(use_comp, comp_pad, raw_pad)
     meta = torch.stack([
         torch.where(use_comp, _FLAG_COMP, _FLAG_RAW),
         torch.where(use_comp, comp_w, raw_w),
     ]).to(torch.int32)
-    return payload, meta
+    return comp32[0], meta
+
+
+def _payload(comp32: torch.Tensor, x32: torch.Tensor, flag: int,
+             words: int) -> torch.Tensor:
+    """The ``words`` words a rank sends: its archive words where its flag is
+    1, else its raw words, zero past their end."""
+    src = comp32 if flag == _FLAG_COMP else x32
+    if src.shape[0] >= words:
+        return src[:words]
+    return F.pad(src, (0, words - src.shape[0]))
+
+
+def _decode(rows: torch.Tensor, n: int, ft: FloatType, prob_bits: int,
+            w32: int, plain: bool):
+    """One batched decode of archive rows int32[R, CW] -> (words int32[R,
+    w32], zero for a row that fails; ok bool[R])."""
+    words, ok, _, _, _ = float_decompress_core(
+        rows, torch.zeros(rows.shape[0], dtype=torch.int64, device=rows.device),
+        n, ft, prob_bits, native=False, plain=plain,
+    )
+    return words[:, :w32], ok
+
+
+def _decode_rows(rows: torch.Tensor, flags: Sequence[int], n: int,
+                 ft: FloatType, prob_bits: int, w32: int, plain: bool = False):
+    """Gathered rows int32[R, >= payload words] under their flags as the
+    host read them -> (words int32[R, w32], zero where the row failed; good
+    bool[R]). Every row goes through one batched decode, which leaves a
+    failed row zero; then each row of flag 2 is taken as it came, whatever
+    the decode made of it (such a row holds the w32 raw words)."""
+    out, good = _decode(rows, n, ft, prob_bits, w32, plain)
+    for i, flag in enumerate(flags):
+        if flag == _FLAG_RAW:
+            out[i] = rows[i, :w32]
+            good[i] = True
+    return out, good
 
 
 def _decode_payload(payload: torch.Tensor, meta: torch.Tensor, n: int,
                     ft: FloatType, prob_bits: int, w32: int,
                     plain: bool = False):
-    """Inverse of ``_encode_payload`` for a batch of received rows:
-    payload int32[R, >= w32], meta int32[R, 2] -> (words int32[R, w32], zero
-    where the row failed; good bool[R]). Every row goes through one batched
-    decode, as in the JAX package; a row of flag 2 or 0 fails it and is
-    taken raw or as zeros."""
+    """A permute's received rows, whose flags the host does not read:
+    payload int32[R, wire words], meta int32[R, 2] -> (words int32[R, w32],
+    zero where the row failed; good bool[R]). Every row goes through one
+    batched decode, as in the JAX package; a row of flag 2 or 0 fails it
+    and is taken raw or as zeros. Rows narrower than w32 hold no raw piece,
+    which is w32 words."""
     flag = meta[:, 0]
     comp = flag == _FLAG_COMP
     raw = flag == _FLAG_RAW
-    words, ok, _, _, _ = float_decompress_core(
-        payload, torch.zeros(payload.shape[0], dtype=torch.int64,
-                             device=payload.device),
-        n, ft, prob_bits, native=False, plain=plain,
-    )
-    words = words[:, :w32]
-    decoded = torch.where(raw[:, None], payload[:, :w32], words)
+    words, ok = _decode(payload, n, ft, prob_bits, w32, plain)
+    if payload.shape[1] >= w32:
+        words = torch.where(raw[:, None], payload[:, :w32], words)
     good = raw | (comp & ok)
-    return torch.where(good[:, None], decoded, 0), good
+    return torch.where(good[:, None], words, 0), good
+
+
+# torch.distributed's gather into one tensor, under its newer name where
+# this torch has it
+_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 def _all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """t -> [world, *t.shape], every rank's t in rank order."""
     out = t.new_empty((dist.get_world_size(group),) + t.shape)
-    dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+    _gather_flat(out.view(-1), t.contiguous(), group=group)
     return out
 
 
-def _nchunks(sizes: torch.Tensor, chunk_w: int) -> int:
-    return -(-int(sizes.max()) // chunk_w)
+def _wire_words(sizes: Sequence[int], chunk_w: int) -> int:
+    """The words every rank moves: the largest payload in whole chunks."""
+    return -(-max(sizes) // chunk_w) * chunk_w
 
 
-def _gather_chunked(payload: torch.Tensor, meta: torch.Tensor, group,
-                    chunk_w: int):
-    """All-gather ``payload`` moving ceil(max payload / chunk_w) chunks of it.
-    meta's first two words are [flag, payload_words]; any further words ride
-    along. Returns ((world, pad_w) payloads, (world, len(meta)) metas, the
-    wire words moved)."""
-    metas = _all_gather_rows(meta, group)
-    words = _nchunks(metas[:, 1], chunk_w) * chunk_w
-    out = payload.new_zeros((metas.shape[0], payload.shape[0]))
-    if words:
-        dist.all_gather(list(out[:, :words].unbind(0)),
-                        payload[:words].contiguous(), group=group)
+def _gather_chunked(comp32: torch.Tensor, x32: torch.Tensor, meta: torch.Tensor,
+                    group, chunk_w: int):
+    """All-gather each rank's payload, moving ceil(max payload / chunk_w)
+    chunks of it: its archive words comp32 or its raw words x32, as its
+    flag says. meta's first two words are [flag, payload_words]; any
+    further words ride along. The gathered metas are read on the host once
+    (the transport's one device-to-host read). Returns ((world, wire
+    words) payload rows, (world, len(meta)) metas on the host, the wire
+    words moved)."""
+    with span("stage:parallel.sizes"):
+        metas = _all_gather_rows(meta, group)
+        with span("sync:parallel.sizes"):
+            metas = metas.cpu()
+        words = _wire_words(metas[:, 1].tolist(), chunk_w)
+    with span("stage:parallel.transfer"):
+        flag = int(metas[dist.get_rank(group), 0])
+        out = comp32.new_empty((metas.shape[0], words))
+        if words:
+            _gather_flat(out.view(-1), _payload(comp32, x32, flag, words),
+                         group=group)
     return out, metas, words
 
 
@@ -196,39 +250,45 @@ def _check_perm(perm, world: int):
     return perm
 
 
-def _permute_chunked(payload: torch.Tensor, meta: torch.Tensor, group, perm,
-                     chunk_w: int):
-    """Send ``payload`` along ``perm``, moving ceil(max payload / chunk_w)
-    chunks; the sizes come from one all-gather, and meta rides with the
-    payload so the receiver can decode. Every pair, (r, r) included, goes in
-    one ``all_to_all_single`` with per-rank splits. Returns
-    (received payload int32[pad_w], received meta int32[2], the wire words
-    moved); zeros where no pair sends to this rank."""
+def _permute_chunked(comp32: torch.Tensor, x32: torch.Tensor, meta: torch.Tensor,
+                     group, perm, chunk_w: int):
+    """Send this rank's payload along ``perm``, moving ceil(max payload /
+    chunk_w) chunks: its archive words comp32 or its raw words x32, as its
+    flag says. The sizes come from one all-gather, read on the host with
+    this rank's flag, and meta rides with the payload so the receiver can
+    decode. Every pair, (r, r) included, goes in one ``all_to_all_single``
+    with per-rank splits. Returns (received payload int32[1, wire words],
+    received meta int32[1, 2], the wire words moved); zeros where no pair
+    sends to this rank."""
     world = dist.get_world_size(group)
     rank = dist.get_rank(group)
     perm = _check_perm(perm, world)
-    words = _nchunks(_all_gather_rows(meta[1:2], group), chunk_w) * chunk_w
-    send = torch.cat([meta, payload[:words]])
-    ins = [0] * world
-    outs = [0] * world
-    for s, d in perm:
-        if s == rank:
-            ins[d] = send.numel()
-        if d == rank:
-            outs[s] = send.numel()
-    got = send.new_empty(sum(outs))
-    dist.all_to_all_single(got, send if sum(ins) else send[:0], outs, ins,
-                           group=group)
-    recv = got if sum(outs) else torch.zeros_like(send)
-    moved = payload.new_zeros(payload.shape)
-    moved[:words] = recv[2:]
-    return moved, recv[:2], words
+    with span("stage:parallel.sizes"):
+        sizes = _all_gather_rows(meta[1:2], group)
+        with span("sync:parallel.sizes"):
+            host = torch.cat([sizes.reshape(-1), meta[:1]]).tolist()
+        words = _wire_words(host[:-1], chunk_w)
+    with span("stage:parallel.transfer"):
+        send = torch.cat([meta, _payload(comp32, x32, host[-1], words)])
+        ins = [0] * world
+        outs = [0] * world
+        for s, d in perm:
+            if s == rank:
+                ins[d] = send.numel()
+            if d == rank:
+                outs[s] = send.numel()
+        got = send.new_empty(sum(outs))
+        dist.all_to_all_single(got, send if sum(ins) else send[:0], outs, ins,
+                               group=group)
+        recv = got if sum(outs) else torch.zeros_like(send)
+    return recv[None, 2:], recv[None, :2], words
 
 
 def _wire(words: int, dev) -> torch.Tensor:
-    return torch.tensor([words], dtype=torch.int32, device=dev)
+    return torch.full((1,), words, dtype=torch.int32, device=dev)
 
 
+@spanned("parallel:compressed_all_gather")
 def compressed_all_gather(
     local: torch.Tensor,
     group=None,
@@ -247,16 +307,19 @@ def compressed_all_gather(
     piece of an odd count of floats comes back whole."""
     ft = _ft_of(local.dtype)
     world = dist.get_world_size(group)
-    flat32, n, w32 = _to_u32(local)
-    chunk_w = _chunk_words(w32, chunk_words)
-    pad_w = _pad_words(w32, chunk_w)
-    payload, meta = _encode_payload(flat32, n, ft, prob_bits, pad_w, plain)
-    rows, metas, wire_w = _gather_chunked(payload, meta, group, chunk_w)
-    decoded, good = _decode_payload(rows, metas, n, ft, prob_bits, w32, plain)
-    out = _rows_from_u32(decoded, local.dtype, n).reshape(
-        (world * local.shape[0],) + tuple(local.shape[1:]))
-    if return_stats:
-        return out, good, _wire(wire_w, local.device)
+    with span("stage:parallel.encode"):
+        flat32, n, w32 = _to_u32(local)
+        chunk_w = _chunk_words(w32, chunk_words)
+        comp32, meta = _encode_payload(flat32, n, ft, prob_bits, plain)
+    rows, metas, wire_w = _gather_chunked(comp32, flat32, meta, group, chunk_w)
+    with span("stage:parallel.decode"):
+        decoded, good = _decode_rows(rows, metas[:, 0].tolist(), n, ft,
+                                     prob_bits, w32, plain)
+    with span("stage:parallel.output"):
+        out = _rows_from_u32(decoded, local.dtype, n).reshape(
+            (world * local.shape[0],) + tuple(local.shape[1:]))
+        if return_stats:
+            return out, good, _wire(wire_w, local.device)
     return out, good
 
 
@@ -276,6 +339,7 @@ def _addend(local: torch.Tensor, world: int):
     return flat32, n, w32, chunk_n, chunk_32
 
 
+@spanned("parallel:compressed_reduce_scatter")
 def compressed_reduce_scatter(
     local: torch.Tensor,
     group=None,
@@ -302,7 +366,6 @@ def compressed_reduce_scatter(
     d = dist.get_rank(group)
     flat32, _, _, chunk_n, chunk_32 = _addend(local, world)
     chunk_w = _chunk_words(chunk_32, chunk_words)
-    pad_w = _pad_words(chunk_32, chunk_w)
     perm = [(i, (i + 1) % world) for i in range(world)]
 
     def chunk(idx):
@@ -314,11 +377,13 @@ def compressed_reduce_scatter(
         return _to_u32(fa + fb)[0]
 
     def hop(acc32):
-        payload, meta = _encode_payload(acc32, chunk_n, ft, prob_bits, pad_w,
-                                        plain)
-        moved, mmeta, ww = _permute_chunked(payload, meta, group, perm, chunk_w)
-        dec, ok = _decode_payload(moved[None], mmeta[None], chunk_n, ft,
-                                  prob_bits, chunk_32, plain)
+        with span("stage:parallel.encode"):
+            comp32, meta = _encode_payload(acc32, chunk_n, ft, prob_bits, plain)
+        moved, mmeta, ww = _permute_chunked(comp32, acc32, meta, group, perm,
+                                            chunk_w)
+        with span("stage:parallel.decode"):
+            dec, ok = _decode_payload(moved, mmeta, chunk_n, ft, prob_bits,
+                                      chunk_32, plain)
         return dec[0], ok, ww
 
     acc = chunk(d % world)
@@ -332,12 +397,14 @@ def compressed_reduce_scatter(
     # lands chunk d on rank d
     dec, ok, ww = hop(acc)
     good, wire = good & ok, wire + ww
-    out = _from_u32(dec, local.dtype, (1, chunk_n))
-    if return_stats:
-        return out, good, _wire(wire, local.device)
+    with span("stage:parallel.output"):
+        out = _from_u32(dec, local.dtype, (1, chunk_n))
+        if return_stats:
+            return out, good, _wire(wire, local.device)
     return out, good
 
 
+@spanned("parallel:compressed_all_reduce")
 def compressed_all_reduce(
     local: torch.Tensor,
     group=None,
@@ -359,22 +426,25 @@ def compressed_all_reduce(
     red, good_rs, wire_rs = compressed_reduce_scatter(
         local, group, prob_bits, chunk_words, True, plain)
     chunk_n = red.shape[1]
-    flat32, _, w32 = _to_u32(red)
-    chunk_w = _chunk_words(w32, chunk_words)
-    pad_w = _pad_words(w32, chunk_w)
-    payload, meta = _encode_payload(flat32, chunk_n, ft, prob_bits, pad_w, plain)
-    # each rank's reduce-scatter flag rides the gather's size exchange
-    meta = torch.cat([meta, good_rs.to(torch.int32)])
-    rows, metas, ww = _gather_chunked(payload, meta, group, chunk_w)
-    decoded, ok = _decode_payload(rows, metas[:, :2], chunk_n, ft, prob_bits,
-                                  w32, plain)
-    good = (ok.all() & metas[:, 2].bool().all()).reshape(1)
-    out = _rows_from_u32(decoded, local.dtype, chunk_n).reshape((1,) + shape)
-    if return_stats:
-        return out, good, wire_rs + ww
+    with span("stage:parallel.encode"):
+        flat32, _, w32 = _to_u32(red)
+        chunk_w = _chunk_words(w32, chunk_words)
+        comp32, meta = _encode_payload(flat32, chunk_n, ft, prob_bits, plain)
+        # each rank's reduce-scatter flag rides the gather's size exchange
+        meta = torch.cat([meta, good_rs.to(torch.int32)])
+    rows, metas, ww = _gather_chunked(comp32, flat32, meta, group, chunk_w)
+    with span("stage:parallel.decode"):
+        decoded, ok = _decode_rows(rows, metas[:, 0].tolist(), chunk_n, ft,
+                                   prob_bits, w32, plain)
+        good = (ok.all() & bool(metas[:, 2].all())).reshape(1)
+    with span("stage:parallel.output"):
+        out = _rows_from_u32(decoded, local.dtype, chunk_n).reshape((1,) + shape)
+        if return_stats:
+            return out, good, wire_rs + ww
     return out, good
 
 
+@spanned("parallel:compressed_ppermute")
 def compressed_ppermute(
     local: torch.Tensor,
     perm: Sequence[Tuple[int, int]],
@@ -392,14 +462,16 @@ def compressed_ppermute(
     pair sends to this rank; ok bool[1], False there) and with return_stats
     the rank's wire words, int32[1]."""
     ft = _ft_of(local.dtype)
-    flat32, n, w32 = _to_u32(local)
-    chunk_w = _chunk_words(w32, chunk_words)
-    pad_w = _pad_words(w32, chunk_w)
-    payload, meta = _encode_payload(flat32, n, ft, prob_bits, pad_w, plain)
-    moved, mmeta, ww = _permute_chunked(payload, meta, group, perm, chunk_w)
-    dec, good = _decode_payload(moved[None], mmeta[None], n, ft, prob_bits,
-                                w32, plain)
-    out = _from_u32(dec[0], local.dtype, local.shape)
-    if return_stats:
-        return out, good, _wire(ww, local.device)
+    with span("stage:parallel.encode"):
+        flat32, n, w32 = _to_u32(local)
+        chunk_w = _chunk_words(w32, chunk_words)
+        comp32, meta = _encode_payload(flat32, n, ft, prob_bits, plain)
+    moved, mmeta, ww = _permute_chunked(comp32, flat32, meta, group, perm,
+                                        chunk_w)
+    with span("stage:parallel.decode"):
+        dec, good = _decode_payload(moved, mmeta, n, ft, prob_bits, w32, plain)
+    with span("stage:parallel.output"):
+        out = _from_u32(dec[0], local.dtype, local.shape)
+        if return_stats:
+            return out, good, _wire(ww, local.device)
     return out, good

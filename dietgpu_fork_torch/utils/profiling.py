@@ -35,6 +35,10 @@ name in a trace. Names are ``<family>:<where>``:
   ``sparse.sparse_float_decompress_core``;
 * ``kernel:<wrapper>``: each public kernel wrapper of
   ``runtime/cuda_kernels.py``, by its function name;
+* ``parallel:<function>``: the compressed collectives of
+  ``parallel/collectives.py`` (``compressed_all_gather``,
+  ``compressed_reduce_scatter``, ``compressed_all_reduce``,
+  ``compressed_ppermute``);
 * ``stage:<module>.<stage>``: the stages of the paths, where they run:
   ``api.pack_rows``, ``api.outputs``, ``api.status``;
   ``float_codec.split``, ``ans.table``, ``ans.encode``, ``ans.runs``,
@@ -42,7 +46,9 @@ name in a trace. Names are ``<family>:<where>``:
   ``ans.parse``, ``ans.decode``, ``float_codec.join``,
   ``float_codec.verify`` (decompress); ``sparse.bitmap``, ``sparse.ranks``,
   ``sparse.compact``, ``sparse.assemble``, ``sparse.header``,
-  ``sparse.expand`` (the sparse codec);
+  ``sparse.expand`` (the sparse codec); ``parallel.encode``,
+  ``parallel.sizes``, ``parallel.transfer``, ``parallel.decode``,
+  ``parallel.output`` (the compressed collectives);
 * ``sync:<module>.<site>``: each statement that blocks the host on the
   device on a CUDA tensor (a read to the host, or a copy of host data to
   the device):
@@ -73,6 +79,8 @@ name in a trace. Names are ``<family>:<where>``:
   - ``ans.layout``: ``read_layout``, the archives' ANS magics (``native=None``
     on decompress, under ``float_codec.header`` or ``sparse.header`` for
     floats);
+  - ``parallel.sizes``: ``_gather_chunked`` and ``_permute_chunked``, the
+    gathered size headers, with the rank's own flag, read to the host;
   - ``table.target``: ``normalize_probs_batched``, 2^prob_bits as float32;
   - ``table.normalize_round``: ``normalize_probs_batched``, each test of
     the loop that takes the excess off (its rounds + 1 a table build).

@@ -288,7 +288,9 @@ def test_to_from_u32_fp64_is_lo_hi_pairs(n):
 def test_chunk_and_pad_words_equal_jax(payload_words, override):
     cw = co._chunk_words(payload_words, override)
     assert cw == jco._chunk_words(payload_words, override)
-    assert co._pad_words(payload_words, cw) == jco._pad_words(payload_words, cw)
+    # a rank's payload rides in the chunks that the JAX package pads it to
+    if payload_words:
+        assert co._wire_words([payload_words], cw) == jco._pad_words(payload_words, cw)
     assert (co._FLAG_COMP, co._FLAG_RAW) == (jco._FLAG_COMP, jco._FLAG_RAW)
 
 
@@ -312,8 +314,10 @@ def test_encode_decode_payload_equal_jax(case):
         x32 = words
     n, w32 = 3000, x32.shape[0]
     cw = co._chunk_words(w32, None)
-    pad_w = co._pad_words(w32, cw)
-    payload, meta = co._encode_payload(rows_from_numpy(x32), n, ft, 10, pad_w)
+    pad_w = jco._pad_words(w32, cw)
+    comp32, meta = co._encode_payload(rows_from_numpy(x32), n, ft, 10)
+    # the words the rank sends, by its flag, padded as the JAX package's
+    payload = co._payload(comp32, rows_from_numpy(x32), int(meta[0]), pad_w)
     jp, jm = _ENC(jnp.asarray(x32), n, JFT(int(ft)), 10, pad_w)
     assert int(meta[0]) == flag
     assert np.array_equal(payload.numpy().view(np.uint32), np.asarray(jp))
@@ -325,6 +329,9 @@ def test_encode_decode_payload_equal_jax(case):
         jdec, jgood = _DEC(jp_, jm_, n, JFT(int(ft)), 10, w32)
         assert np.array_equal(dec[0].numpy().view(np.uint32), np.asarray(jdec))
         assert bool(good[0]) == bool(jgood)
+        # the gather's decode, under the flag the host read, agrees
+        rows, rgood = co._decode_rows(p[None], m[None, 0].tolist(), n, ft, 10, w32)
+        assert torch.equal(rows, dec) and torch.equal(rgood, good)
     assert bool(good[0]) is False and not bool(dec.any())
 
 

@@ -199,7 +199,11 @@ def test_the_profilers_state_is_read_in_one_place():
     readers = {p.relative_to(PKG).as_posix() for p in _sources()
                if re.search(r"_profiler_enabled|record_function", p.read_text())}
     assert readers == {"utils/profiling.py"}
-    assert not [p for p in _sources("parallel") if "span" in p.read_text()]
+    # the parallel layer records its spans through the same helper
+    assert [p.name for p in _sources("parallel") if "span" in p.read_text()] == [
+        "collectives.py"]
+    assert "from ..utils.profiling import span, spanned" in (
+        PKG / "parallel" / "collectives.py").read_text()
 
 
 def test_every_sync_site_is_listed_in_the_helpers_docstring():
